@@ -2,27 +2,37 @@
 
     python3 chip_smoke.py
 
-Drives vuke_tpu_torch's milksad seed -> hash160 -> target-match path on the
-card and fails (non-zero exit, no result line) unless every phase passes:
+Drives vuke_tpu_torch's two scan paths on the card, the milksad seed ->
+hash160 -> target match (K1 -> K3 -> K4 -> K2) and the sequential direct:be
+scan (K5 -> K4 -> K2), and fails (non-zero exit, no result line) unless
+every phase passes:
 
 1. environment: torch / CUDA / nvcc versions, capability (9, 0), the
-   card's name and power limit;
-2. build: nvcc builds the four kernels from csrc/ (time, registers, spills);
+   card's name, power limit and maximum SM clock;
+2. build: one nvcc per csrc/*.cu, all at once (time, registers, spills);
 3. each kernel against its plain PyTorch version on the card at N = 16384,
    lane-exact, on adversarial inputs, and 64 lanes against host oracles
-   (numpy's MT19937, bignum secp256k1 and base58 written out below, hashlib);
-4. the full derive at batch 2^19 through the kernels against the plain
+   (numpy's MT19937, the port's bignum secp256k1 and encodings, hashlib);
+4. the milksad derive at batch 2^19 through the kernels against the plain
    path on the card (lane-exact) and 256 sampled lanes against the host;
-5. the main path through the user's entry point (the ``scan`` command) over
-   2^22 milksad seeds with one planted target among 4096 decoys: exactly
-   that hit; every kernel's launch count is reset before and read after;
-6. the derive rate (seed_to_hash160_derivations_per_sec) and each kernel's
-   time against its plain version's at the path's shapes (CUDA events).
+   4b. the sequential derive at batch 2^19 across 2^63 against the K3 path
+   on the same keys, the plain path and 256 host lanes;
+5. the milksad main path through the user's entry point (the ``scan``
+   command) over 2^22 seeds with one planted target among 4096 decoys:
+   exactly that hit; the path's launch counts are reset before and read
+   after;
+   5b. the direct:be path through ``scan``: 2^24 keys across 2^63 (every
+   superbatch sequential), and [1, 2^21], whose first two superbatches
+   take K3 and last two K5; each finds exactly its planted key, and each
+   run's launch counts are reset before and read after;
+6. the derive rates (seed_to_hash160_derivations_per_sec,
+   sequential_scan_derivations_per_sec) and each kernel's time against its
+   plain version's and its bound at the path's shapes (CUDA events).
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
 the kernels compute integers.  The script imports nothing of jax and
-nothing of the JAX package itself; its host oracles are written out here.
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -39,18 +49,44 @@ import time
 import numpy as np
 import torch
 
-from vuke_tpu_torch import cli, kernels
+from vuke_tpu_torch import cli, encode, kernels
 from vuke_tpu_torch._device import require_cuda
-from vuke_tpu_torch.benchmark import bench_derive, time_cuda
+from vuke_tpu_torch.benchmark import bench_derive, bench_sequential, time_cuda
 from vuke_tpu_torch.cores import hash160, mt19937
 from vuke_tpu_torch.ecc import field as F
-from vuke_tpu_torch.ecc import inv, smul, tiled
+from vuke_tpu_torch.ecc import incremental as inc
+from vuke_tpu_torch.ecc import inv, ref, smul, tiled
 
 N_KERNEL = 16384
 BATCH = 1 << 19
 SCAN_SEEDS = 1 << 22
-KERNELS = {"mt19937": mt19937.KERNEL, "smul": smul.KERNEL,
+SEQ_SCAN_KEYS = 1 << 24
+KERNELS = {"mt19937": mt19937.KERNEL, "smul": smul.KERNEL, "seq_madd": inc.KERNEL,
            "inv_affine": inv.KERNEL, "hash160": hash160.KERNEL}
+MILKSAD_PATH = ("mt19937", "smul", "inv_affine", "hash160")
+
+# Least time for each kernel's work at N lanes: the larger of its bytes over
+# the HBM rate and its 32-bit integer operations over the SM's rate for
+# them.  Per lane: (bytes, each input read once and each output written
+# once; operations counted from the source, fewest the function needs).
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+INT_OPS_PER_SM_CLOCK = 64            # 32-bit IMAD or SHF per SM per clock (sm_90)
+WORK_PER_LANE = {
+    # 4 B seed in, 32 B key out; 404 multiplies of the init_genrand chain
+    "mt19937": (36, 404),
+    # 32 B scalar in, 4 x 32 B out; 25 additions x 10 field products x 64
+    # 32x32-bit multiplies (the 0.85 MB table is added once below)
+    "smul": (160, 25 * 10 * 64),
+    # 2 x 32 B offset in, 4 x 32 B out; 5M + 2S = 7 field products x 64
+    "seq_madd": (192, 7 * 64),
+    # 4 x 32 B in, 2 x 32 B out; Montgomery batch inversion, 8 products x 64
+    # per lane (the one shared inversion amortized away)
+    "inv_affine": (192, 8 * 64),
+    # 2 x 32 B in, 2 x 20 B out; rotates: 3 SHA-256 blocks x 64 rounds x 6
+    # plus 2 RIPEMD-160 blocks x 160 steps x 2
+    "hash160": (104, 3 * 64 * 6 + 2 * 160 * 2),
+}
+SMUL_TABLE_BYTES = smul.WINDOWS * smul.TSIZE * 64
 
 
 def say(msg: str) -> None:
@@ -71,102 +107,14 @@ def exact_err(name: str, got, want) -> int:
 
 
 # ---------------------------------------------------------------------------
-# host oracles
+# host oracles: the port's bignum curve and encodings (host code, never on
+# the card), hashlib and numpy's MT19937
 # ---------------------------------------------------------------------------
 
-P = 2**256 - 2**32 - 977
-N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
-GX = 0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
-GY = 0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8
-B58 = "123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
-
-
-def _point_add(p1, p2):
-    if p1 is None:
-        return p2
-    (x1, y1), (x2, y2) = p1, p2
-    if x1 == x2:
-        if (y1 + y2) % P == 0:
-            return None
-        lam = 3 * x1 * x1 * pow(2 * y1, -1, P) % P
-    else:
-        lam = (y2 - y1) * pow(x2 - x1, -1, P) % P
-    x3 = (lam * lam - x1 - x2) % P
-    return x3, (lam * (x1 - x3) - y1) % P
-
-
-def point_mul(k: int):
-    """k * G in affine coordinates, double-and-add over Python ints."""
-    result, addend = None, (GX, GY)
-    k %= N
-    while k:
-        if k & 1:
-            result = _point_add(result, addend)
-        addend = _point_add(addend, addend)
-        k >>= 1
-    return result
-
-
-def p2pkh_address(h160: bytes) -> str:
-    """Base58Check of version byte 0x00 + hash160."""
-    payload = b"\x00" + h160
-    data = payload + hashlib.sha256(hashlib.sha256(payload).digest()).digest()[:4]
-    n, out = int.from_bytes(data, "big"), ""
-    while n:
-        n, r = divmod(n, 58)
-        out = B58[r] + out
-    return "1" * (len(data) - len(data.lstrip(b"\x00"))) + out
-
-
-def _ripemd160_py(msg: bytes) -> bytes:
-    """RIPEMD-160 from its specification (for hashlib builds without it)."""
-    rl = [list(range(16)),
-          [7, 4, 13, 1, 10, 6, 15, 3, 12, 0, 9, 5, 2, 14, 11, 8],
-          [3, 10, 14, 4, 9, 15, 8, 1, 2, 7, 0, 6, 13, 11, 5, 12],
-          [1, 9, 11, 10, 0, 8, 12, 4, 13, 3, 7, 15, 14, 5, 6, 2],
-          [4, 0, 5, 9, 7, 12, 2, 10, 14, 1, 3, 8, 11, 6, 15, 13]]
-    rr = [[5, 14, 7, 0, 9, 2, 11, 4, 13, 6, 15, 8, 1, 10, 3, 12],
-          [6, 11, 3, 7, 0, 13, 5, 10, 14, 15, 8, 12, 4, 9, 1, 2],
-          [15, 5, 1, 3, 7, 14, 6, 9, 11, 8, 12, 2, 10, 0, 4, 13],
-          [8, 6, 4, 1, 3, 11, 15, 0, 5, 12, 2, 13, 9, 7, 10, 14],
-          [12, 15, 10, 4, 1, 5, 8, 7, 6, 2, 13, 14, 0, 3, 9, 11]]
-    sl = [[11, 14, 15, 12, 5, 8, 7, 9, 11, 13, 14, 15, 6, 7, 9, 8],
-          [7, 6, 8, 13, 11, 9, 7, 15, 7, 12, 15, 9, 11, 7, 13, 12],
-          [11, 13, 6, 7, 14, 9, 13, 15, 14, 8, 13, 6, 5, 12, 7, 5],
-          [11, 12, 14, 15, 14, 15, 9, 8, 9, 14, 5, 6, 8, 6, 5, 12],
-          [9, 15, 5, 11, 6, 8, 13, 12, 5, 12, 13, 14, 11, 8, 5, 6]]
-    sr = [[8, 9, 9, 11, 13, 15, 15, 5, 7, 7, 8, 11, 14, 14, 12, 6],
-          [9, 13, 15, 7, 12, 8, 9, 11, 7, 7, 12, 7, 6, 15, 13, 11],
-          [9, 7, 15, 11, 8, 6, 6, 14, 12, 13, 5, 14, 13, 13, 7, 5],
-          [15, 5, 8, 11, 14, 14, 6, 14, 6, 9, 12, 9, 12, 5, 15, 8],
-          [8, 5, 12, 9, 12, 5, 14, 6, 8, 13, 6, 5, 15, 13, 11, 11]]
-    kl = [0, 0x5A827999, 0x6ED9EBA1, 0x8F1BBCDC, 0xA953FD4E]
-    kr = [0x50A28BE6, 0x5C4DD124, 0x6D703EF3, 0x7A6D76E9, 0]
-    fs = [lambda x, y, z: x ^ y ^ z,
-          lambda x, y, z: (x & y) | (~x & z),
-          lambda x, y, z: (x | ~y) ^ z,
-          lambda x, y, z: (x & z) | (y & ~z),
-          lambda x, y, z: x ^ (y | ~z)]
-    M = 0xFFFFFFFF
-
-    def rol(x, s):
-        return ((x << s) | (x >> (32 - s))) & M
-
-    h = [0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0]
-    data = msg + b"\x80" + b"\x00" * ((55 - len(msg)) % 64) + (8 * len(msg)).to_bytes(8, "little")
-    for off in range(0, len(data), 64):
-        x = [int.from_bytes(data[off + 4 * i:off + 4 * i + 4], "little") for i in range(16)]
-        al, bl, cl, dl, el = h
-        ar, br, cr, dr, er = h
-        for r in range(5):
-            for j in range(16):
-                t = rol((al + (fs[r](bl, cl, dl) & M) + x[rl[r][j]] + kl[r]) & M, sl[r][j]) + el
-                al, el, dl, cl, bl = el, dl, rol(cl, 10), bl, t & M
-                t = rol((ar + (fs[4 - r](br, cr, dr) & M) + x[rr[r][j]] + kr[r]) & M, sr[r][j]) + er
-                ar, er, dr, cr, br = er, dr, rol(cr, 10), br, t & M
-        h = [(h[1] + cl + dr) & M, (h[2] + dl + er) & M, (h[3] + el + ar) & M,
-             (h[4] + al + br) & M, (h[0] + bl + cr) & M]
-    return b"".join(v.to_bytes(4, "little") for v in h)
+P, N, GX = ref.P, ref.N, ref.GX
+point_mul = ref.point_mul
+p2pkh_address = encode.p2pkh_address
+host_hash160 = encode.hash160
 
 
 def ripemd160_source() -> str:
@@ -174,15 +122,7 @@ def ripemd160_source() -> str:
         hashlib.new("ripemd160", b"")
         return "hashlib"
     except ValueError:
-        return "pure-Python RIPEMD-160 (hashlib has none here)"
-
-
-def host_hash160(data: bytes) -> bytes:
-    d = hashlib.sha256(data).digest()
-    try:
-        return hashlib.new("ripemd160", d).digest()
-    except ValueError:
-        return _ripemd160_py(d)
+        return "the written-out RIPEMD-160 of vuke_tpu_torch.encode (hashlib has none here)"
 
 
 def host_milksad_key(seed: int) -> bytes:
@@ -230,10 +170,17 @@ def phase_environment():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    int_ops_per_s = sms * INT_OPS_PER_SM_CLOCK * clock_mhz * 1e6
     say(f"[1 env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} nvcc '{nvcc_ver}' "
-        f"capability {torch.cuda.get_device_capability(dev)} devices {torch.cuda.device_count()}")
-    return dev, smi
+        f"capability {torch.cuda.get_device_capability(dev)} devices {torch.cuda.device_count()}; "
+        f"{sms} SMs, max SM clock {clock_mhz:.0f} MHz: bounds assume "
+        f"{int_ops_per_s:.4g} 32-bit integer ops/s and {HBM_BYTES_PER_S:.3g} B/s")
+    return dev, smi, int_ops_per_s
 
 
 def phase_build(card: str):
@@ -247,7 +194,7 @@ def phase_build(card: str):
             stack, st, ld, regs = m.groups()
             parts.append(f"{name}: {regs} regs, stack {stack} B, spills {st}/{ld} B")
     summary = ", ".join(parts)
-    say(f"[2 build] nvcc built {lib.path.name} in {lib.build_seconds:.1f} s [{card}]; {summary}")
+    say(f"[2 build] nvcc (one per source, in parallel) built {lib.path.name} in {lib.build_seconds:.1f} s [{card}]; {summary}")
 
 
 def phase_kernels(dev, rng) -> dict:
@@ -326,6 +273,8 @@ def phase_kernels(dev, rng) -> dict:
         f"kernel == plain bit-exact (max abs err 0); K3-output lanes == point_mul; "
         f"8 lanes of unreduced inputs in [p, 2^256) == X/ZZ, Y/ZZZ mod p")
 
+    errs["seq_madd"] = phase_k5(dev, rng)
+
     # K2: random x, y
     xw = torch.from_numpy(rng.integers(0, 1 << 32, (8, N_KERNEL), dtype=np.uint32)).to(dev)
     yw = torch.from_numpy(rng.integers(0, 1 << 32, (8, N_KERNEL), dtype=np.uint32)).to(dev)
@@ -343,6 +292,85 @@ def phase_kernels(dev, rng) -> dict:
     return errs
 
 
+def phase_k5(dev, rng) -> int:
+    """K5 against its plain version at N_KERNEL, lane-exact after canonical
+    reduction mod p, for three base points k * G and an off-curve base with
+    bx = p - 1.  Offsets (i + 1) * G from K3 + K4; the first lanes hold
+    adversarial coordinates instead (0, p - 1, p, 2^256 - 1; ox < bx and
+    oy < by borrow on most lanes).  64 curve lanes per real base against
+    the host: X3 / ZZ, Y3 / ZZZ == point_mul(k + i + 1)."""
+    offx, offy = (as_i64(a).cpu() for a in inc.build_offset_table(N_KERNEL, dev))
+    top = (1 << 256) - 1
+    adv = [(0, 0), (P - 1, 1), (top, P), (1, top), (P, P - 1), (5, 7)]
+    for j, (x, y) in enumerate(adv):
+        offx[:, j] = torch.tensor([(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
+        offy[:, j] = torch.tensor([(y >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
+    offx, offy = offx.to(torch.uint32).to(dev), offy.to(torch.uint32).to(dev)
+    ks = [(1 << 64) - 2, (1 << 32) + 1, 1026]
+    bases = [point_mul(k) for k in ks] + [(P - 1, P - 2)]
+    for i, (bx, by) in enumerate(bases):
+        outs = inc.seq_madd(offx, offy, bx, by)
+        plain = inc.seq_madd_plain(offx, offy, bx, by)
+        exact_err(f"K5 base {i} (mod p)", [F.canonical(F.from_u32_le(a)) for a in outs],
+                  [F.canonical(F.from_u32_le(a)) for a in plain])
+        if i == len(ks):
+            continue
+        X, Y, ZZ, ZZZ = (a.cpu() for a in outs)
+        lanes = [j for j in rng.choice(np.arange(len(adv), N_KERNEL), 65, replace=False).tolist()
+                 if j + 1 != ks[i]][:64]
+        for j in lanes:
+            gx = lane_int_le(X, j) * pow(lane_int_le(ZZ, j), -1, P) % P
+            gy = lane_int_le(Y, j) * pow(lane_int_le(ZZZ, j), -1, P) % P
+            if (gx, gy) != point_mul(ks[i] + j + 1):
+                raise AssertionError(f"K5 lane {j} (base {ks[i]}) differs from point_mul")
+    say(f"[3 K5 seq_madd] N={N_KERNEL} kernel == plain mod p, lane-exact after canonical "
+        f"reduction (max abs err 0), bases k*G for k = 2^64-2, 2^32+1, 1026 and an off-curve "
+        f"bx = p-1; offsets (i+1)*G with 0, p-1, p, 2^256-1 lanes; 64 lanes per real base "
+        f"== point_mul(k+i+1)")
+    return 0
+
+
+def seq_words(start: int, n: int) -> torch.Tensor:
+    """(8, n) uint32 BE key words of the keys start .. start + n - 1 (< 2^64)."""
+    vals = np.uint64(start) + np.arange(n, dtype=np.uint64)
+    words = np.zeros((8, n), dtype=np.uint32)
+    words[7] = (vals & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    words[6] = (vals >> np.uint64(32)).astype(np.uint32)
+    return torch.from_numpy(words)
+
+
+def phase_seq_derive(dev, rng):
+    """The sequential derive at batch 2^19 from 2^63 - 2^18 (crossing 2^63
+    and a carry out of the low 32 bits) through K5 -> K4 -> K2 against the
+    K3 path on the same keys, the plain sequential path and the host."""
+    start = (1 << 63) - BATCH // 2
+    before = inc.KERNEL.launches
+    offx, offy = inc.offset_table(BATCH, dev)
+    bx, by = point_mul(start - 1)
+    d = inc.sequential_core(bx, by, offx, offy)
+    d_k3 = tiled.derive_tiled_from_words(seq_words(start, BATCH).to(dev))
+    d_p = inc.sequential_core(bx, by, offx, offy, plain=True)
+    keys = ("h160c", "h160u", "frag_c", "frag_u")
+
+    def flat(dd):
+        return [dd["h160c"], dd["h160u"], *dd["frag_c"], *dd["frag_u"]]
+
+    exact_err("sequential vs K3 path", flat(d), flat(d_k3))
+    exact_err("sequential vs plain", flat(d), flat(d_p))
+    if inc.KERNEL.launches <= before:
+        raise AssertionError("the sequential derive did not launch seq_madd")
+    hc, hu = d["h160c"].T.cpu(), d["h160u"].T.cpu()
+    lanes = [0, 1, BATCH // 2 - 1, BATCH // 2, BATCH - 1] + rng.choice(
+        np.arange(2, BATCH - 1), 251, replace=False).tolist()
+    for j in lanes:
+        if (digest_le(hc, j), digest_le(hu, j)) != host_h160s(start + j):
+            raise AssertionError(f"sequential lane {j} (key {start + j}) differs from the host")
+    say(f"[4b sequential derive] batch {BATCH} keys [2^63 - {BATCH // 2}, 2^63 + {BATCH // 2}): "
+        f"K5 path == K3 "
+        f"path == plain path lane-exact for {', '.join(keys)}; 256 sampled lanes (both "
+        f"sides of 2^63 included) == host point_mul + hashlib")
+
+
 def phase_derive(dev, rng):
     before = {k: v.launches for k, v in KERNELS.items()}
     seeds_np = rng.integers(0, 1 << 32, BATCH, dtype=np.uint32)
@@ -358,8 +386,8 @@ def phase_derive(dev, rng):
     t_p = time.perf_counter() - t0
     exact_err("derive", [d["h160c"], d["h160u"], *d["frag_c"], *d["frag_u"]],
               [dp["h160c"], dp["h160u"], *dp["frag_c"], *dp["frag_u"]])
-    for name, k in KERNELS.items():
-        if k.launches <= before[name]:
+    for name in MILKSAD_PATH:
+        if KERNELS[name].launches <= before[name]:
             raise AssertionError(f"derive did not launch {name}")
     hc, hu = d["h160c"].T.cpu(), d["h160u"].T.cpu()
     lanes = [0, 1, 2, 3] + rng.choice(np.arange(4, BATCH), 252, replace=False).tolist()
@@ -369,27 +397,24 @@ def phase_derive(dev, rng):
             raise AssertionError(f"derive lane {j} (seed {seeds_np[j]}) differs from the host")
     say(f"[4 derive] batch {BATCH}: kernels == plain path lane-exact for h160c, h160u, "
         f"frag_c, frag_u; 256 sampled lanes == host (numpy MT19937 + host point_mul + hashlib); "
-        f"every kernel launched (host wall clock: kernels {t_k:.3f} s incl. first use, "
+        f"K1, K3, K4, K2 launched (host wall clock: kernels {t_k:.3f} s incl. first use, "
         f"plain {t_p:.3f} s)")
 
 
-def phase_scan(dev, rng) -> dict:
-    start = 3_000_000_000
-    end = start + SCAN_SEEDS - 1
-    planted = int(rng.integers(start, end + 1))
-    key = host_milksad_key(planted)
-    k = int.from_bytes(key, "big") % N or 1
-    target = p2pkh_address(host_h160s(k)[0])
-    decoys = [p2pkh_address(rng.bytes(20)) for _ in range(4096)]
+def run_scan(transform: str, start: int, end: int, planted: int, target: str,
+             decoys: list, keys: int, display: str):
+    """One ``scan`` through the command line against the decoys plus
+    ``target``, with every launch count set to 0 just before and read just
+    after.  It must print exactly the planted hit."""
     path = kernels.BUILD_DIR / "smoke_targets.txt"
+    path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text("\n".join(decoys[:2048] + [target] + decoys[2048:]) + "\n")
-
     for kern in KERNELS.values():
         kern.launches = 0
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(["scan", "--transform", "milksad", "--targets", str(path),
+        rc = cli.main(["scan", "--transform", transform, "--targets", str(path),
                        "--batch", str(BATCH), "range", "--start", str(start),
                        "--end", str(end)])
     torch.cuda.synchronize()
@@ -398,14 +423,34 @@ def phase_scan(dev, rng) -> dict:
     text = out.getvalue()
     summary = json.loads(text.strip().splitlines()[-1])
     if rc != 0 or summary["matches_found"] != 1 or text.count("========== HIT") != 1:
-        raise AssertionError(f"scan: expected exactly one hit, got {summary}\n{text}")
-    if f"Source: {planted}\n" not in text or f"Matched: {target} (p2pkh_compressed)" not in text:
-        raise AssertionError(f"scan: the hit is not seed {planted} / {target}:\n{text}")
-    if summary["keys_generated"] != SCAN_SEEDS:
-        raise AssertionError(f"scan: {summary['keys_generated']} keys, expected {SCAN_SEEDS}")
-    for name, c in launches.items():
-        if c == 0:
-            raise AssertionError(f"scan: kernel {name} was never launched on the main path")
+        raise AssertionError(f"scan {transform}: expected exactly one hit, got {summary}\n{text}")
+    if (f"Source: {planted}\nTransform: {display}\n" not in text
+            or f"Matched: {target} (p2pkh_compressed)" not in text):
+        raise AssertionError(f"scan {transform}: the hit is not {planted} / {target}:\n{text}")
+    if summary["keys_generated"] != keys:
+        raise AssertionError(f"scan {transform}: {summary['keys_generated']} keys, expected {keys}")
+    return summary, launches, secs
+
+
+def check_launches(what: str, launches: dict, want: dict):
+    """``want``: exact counts, or None for 'at least once'."""
+    for name, n in want.items():
+        got = launches[name]
+        if (n is None and got == 0) or (n is not None and got != n):
+            raise AssertionError(f"{what}: {name} launched {got} times, expected "
+                                 f"{'at least once' if n is None else n}: {launches}")
+
+
+def phase_scan(dev, rng, decoys) -> dict:
+    start = 3_000_000_000
+    end = start + SCAN_SEEDS - 1
+    planted = int(rng.integers(start, end + 1))
+    k = int.from_bytes(host_milksad_key(planted), "big") % N or 1
+    target = p2pkh_address(host_h160s(k)[0])
+    summary, launches, secs = run_scan("milksad", start, end, planted, target, decoys,
+                                       SCAN_SEEDS, "milksad")
+    check_launches("milksad scan", launches,
+                   {name: None for name in MILKSAD_PATH} | {"seq_madd": 0})
     say(f"[5 scan] milksad range [{start}, {end}] ({SCAN_SEEDS} seeds, batch {BATCH}) vs "
         f"4096 decoys + 1 planted: exactly 1 hit, seed {planted} -> {target}; "
         f"{summary['candidates']} device candidates; {secs:.2f} s host wall clock; "
@@ -413,20 +458,72 @@ def phase_scan(dev, rng) -> dict:
     return launches
 
 
-def phase_rate(dev, rng, card: str) -> dict:
+def phase_seq_scan(dev, rng, decoys) -> list:
+    """direct:be through ``scan``: 2^24 keys from 2^63 - 2^23, every
+    superbatch sequential (the offset table was cached by phase 4b, so K3
+    runs 0 times), then [1, 4 * BATCH] = [1, 2^21]: the superbatches from 1
+    and BATCH + 1 start below BATCH + 2 and take K3, the last two take K5."""
+    runs = []
+    start = (1 << 63) - SEQ_SCAN_KEYS // 2
+    end = start + SEQ_SCAN_KEYS - 1
+    planted = start + int(rng.integers(0, SEQ_SCAN_KEYS))
+    target = p2pkh_address(host_h160s(planted)[0])
+    batches = SEQ_SCAN_KEYS // BATCH
+    summary, launches, secs = run_scan("direct:be", start, end, planted, target, decoys,
+                                       SEQ_SCAN_KEYS, "direct")
+    check_launches("direct:be scan across 2^63", launches,
+                   {"seq_madd": batches, "inv_affine": batches, "hash160": batches,
+                    "smul": 0, "mt19937": 0})
+    runs.append(launches)
+    say(f"[5b direct:be scan] range [2^63 - {SEQ_SCAN_KEYS // 2}, 2^63 + {SEQ_SCAN_KEYS // 2}) "
+        f"({SEQ_SCAN_KEYS} keys, batch "
+        f"{BATCH}) vs 4096 decoys + 1 planted: exactly 1 hit, key {planted} -> {target}, "
+        f"'Transform: direct'; {summary['candidates']} device candidates; {secs:.2f} s host "
+        f"wall clock; launches {launches}")
+
+    end = 4 * BATCH
+    target = p2pkh_address(host_h160s(700)[0])
+    summary, launches, secs = run_scan("direct:be", 1, end, 700, target, decoys, end, "direct")
+    check_launches("direct:be scan of [1, 2^21]", launches,
+                   {"smul": 2, "seq_madd": 2, "inv_affine": 4, "hash160": 4, "mt19937": 0})
+    runs.append(launches)
+    say(f"[5b direct:be scan] range [1, {end}] vs 4096 decoys + key 700: exactly 1 hit; "
+        f"superbatches from 1 and {BATCH + 1} took K3, from {2 * BATCH + 1} and "
+        f"{3 * BATCH + 1} took K5; "
+        f"{secs:.2f} s host wall clock; launches {launches}")
+    return runs
+
+
+def bound(name: str, n: int, int_ops_per_s: float):
+    """(bound_ms, bound_by) of ``name``'s work at ``n`` lanes."""
+    nbytes, ops = WORK_PER_LANE[name]
+    t_bytes = (nbytes * n + (SMUL_TABLE_BYTES if name == "smul" else 0)) / HBM_BYTES_PER_S
+    t_ops = ops * n / int_ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_rate(dev, rng, card: str, int_ops_per_s: float) -> dict:
     r = bench_derive(batch=BATCH)
     say(f"[6 rate] {r['metric']} = {r['derivations_per_sec']:.0f} at batch {BATCH} "
         f"({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}) [{card}]")
+    r = bench_sequential(batch=BATCH)
+    say(f"[6b rate] {r['metric']} = {r['derivations_per_sec']:.0f} at batch {BATCH} "
+        f"({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}); offset table "
+        f"built in {r['offset_table_seconds']:.3f} s before the clock [{card}]")
     seeds = torch.from_numpy(rng.integers(0, 1 << 32, BATCH, dtype=np.uint32)).to(dev)
     norm = tiled.normalize_words(mt19937.milksad_key_words(seeds))
     table = smul.table_on(str(dev))
     outs = smul.scalar_mul(norm)
     x, y = inv.affine(*outs)
+    offx, offy = inc.offset_table(BATCH, dev)
+    bx, by = point_mul((1 << 48) - 1)
     cases = {
         "mt19937": (lambda: mt19937.milksad_key_words(seeds),
                     lambda: mt19937.milksad_key_words_plain(seeds)),
         "smul": (lambda: smul.scalar_mul(norm),
                  lambda: smul.scalar_mul_plain(norm, table)),
+        "seq_madd": (lambda: inc.seq_madd(offx, offy, bx, by),
+                     lambda: inc.seq_madd_plain(offx, offy, bx, by)),
         "inv_affine": (lambda: inv.affine(*outs), lambda: inv.affine_plain(*outs)),
         "hash160": (lambda: hash160.hash160s(x, y), lambda: hash160.hash160s_plain(x, y)),
     }
@@ -434,24 +531,29 @@ def phase_rate(dev, rng, card: str) -> dict:
     for name, (kern, plain) in cases.items():
         ms = time_cuda(kern, iters=20, warmup=3)
         plain_ms = time_cuda(plain, iters=2, warmup=1)
-        times[name] = (ms, plain_ms)
+        bound_ms, bound_by = bound(name, BATCH, int_ops_per_s)
+        times[name] = (ms, plain_ms, bound_ms, bound_by)
         say(f"[6 time] {name} at N={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms "
-            f"({plain_ms / ms:.1f}x) [{card}]")
+            f"({plain_ms / ms:.1f}x), bound {bound_ms:.4f} ms by {bound_by} "
+            f"({100 * bound_ms / ms:.1f}% of it) [{card}]")
     return times
 
 
 def main() -> int:
-    dev, card = phase_environment()
+    dev, card, int_ops_per_s = phase_environment()
     rng = np.random.default_rng(20261016)
     phase_build(card)
     errs = phase_kernels(dev, rng)
     phase_derive(dev, rng)
-    launches = phase_scan(dev, rng)
-    times = phase_rate(dev, rng, card)
+    phase_seq_derive(dev, rng)
+    decoys = [p2pkh_address(rng.bytes(20)) for _ in range(4096)]
+    runs = [phase_scan(dev, rng, decoys)] + phase_seq_scan(dev, rng, decoys)
+    times = phase_rate(dev, rng, card, int_ops_per_s)
     summary = {"kernels": [
         {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": sum(run[name] for run in runs), "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
+         "bound_by": times[name][3], "library_ms": None}
         for name, k in KERNELS.items()]}
     say(json.dumps(summary))
     say(card)

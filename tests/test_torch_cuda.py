@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from vuke_tpu.ecc import ref
 from vuke_tpu_torch.cores import hash160, mt19937
 from vuke_tpu_torch.ecc import field as F
-from vuke_tpu_torch.ecc import inv, smul, tiled
+from vuke_tpu_torch.ecc import incremental as inc
+from vuke_tpu_torch.ecc import inv, ref, smul, tiled
 
 pytestmark = [
     pytest.mark.cuda_only,
@@ -110,3 +110,40 @@ def test_derive_kernels_match_plain_path(dev):
         assert _eq(a[key], b[key])
     for key in ("frag_c", "frag_u"):
         assert all(_eq(g, w) for g, w in zip(a[key], b[key]))
+
+
+@pytest.mark.parametrize("k", [(1 << 64) - 2, (1 << 32) + 1, 1026])
+def test_seq_madd_kernel_matches_plain_mod_p(dev, k):
+    """Offsets (i + 1) * G with adversarial first lanes (0, p - 1, 2^256 - 1
+    coordinates), against the base point (k - 1) * G and bx = p - 1."""
+    offx, offy = (a.clone() for a in inc.offset_table(N, dev))
+    top = (1 << 256) - 1
+    for j, (x, y) in enumerate([(0, 0), (ref.P - 1, 1), (top, ref.P), (1, top)]):
+        offx[:, j] = torch.tensor([(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+                                  dtype=torch.int64).to(torch.uint32).to(dev)
+        offy[:, j] = torch.tensor([(y >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+                                  dtype=torch.int64).to(torch.uint32).to(dev)
+    for bx, by in (ref.point_mul(k - 1), (ref.P - 1, ref.P - 2)):
+        before = inc.KERNEL.launches
+        got = inc.seq_madd(offx, offy, bx, by)
+        assert inc.KERNEL.launches == before + 1
+        want = inc.seq_madd_plain(offx, offy, bx, by)
+        for g, w in zip(got, want):
+            assert _eq(F.canonical(F.from_u32_le(g)), F.canonical(F.from_u32_le(w)))
+
+
+def test_sequential_core_matches_k3_path(dev):
+    """4096 contiguous keys across 2^63 (and a 2^32 carry): the sequential
+    path through K5 equals the K3 path, lane for lane."""
+    start = (1 << 63) - N // 2
+    vals = np.uint64(start) + np.arange(N, dtype=np.uint64)
+    words = np.zeros((8, N), dtype=np.uint32)
+    words[7] = (vals & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    words[6] = (vals >> np.uint64(32)).astype(np.uint32)
+    want = tiled.derive_tiled_from_words(torch.from_numpy(words).to(dev))
+    offx, offy = inc.offset_table(N, dev)
+    got = inc.sequential_core(*ref.point_mul(start - 1), offx, offy)
+    for key in ("h160c", "h160u"):
+        assert _eq(got[key], want[key])
+    for key in ("frag_c", "frag_u"):
+        assert all(_eq(g, w) for g, w in zip(got[key], want[key]))

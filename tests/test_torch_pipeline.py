@@ -91,15 +91,21 @@ def test_cli_refuses_what_is_not_ported(argv):
 
 
 def test_port_imports_without_jax():
-    """The port and its host helpers never pull jax in (``python -S``, a
-    minimal path, as tests/test_host_fast.py does)."""
+    """Every module of the port, and ``chip_smoke``, import neither jax nor
+    anything of the JAX package (``python -S``, a minimal path, as
+    tests/test_host_fast.py does)."""
     code = """
-import sys
+import importlib, pkgutil, sys
 import vuke_tpu_torch
-from vuke_tpu_torch import benchmark, cli, matcher, params, pipeline
-from vuke_tpu_torch.ecc import tiled
-assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
-print('OK')
+names = [m.name for m in pkgutil.walk_packages(vuke_tpu_torch.__path__, 'vuke_tpu_torch.')
+         if m.name != 'vuke_tpu_torch.__main__']   # runs the command line
+assert len(names) >= 20, names
+for name in names + ['chip_smoke']:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'vuke_tpu' or m.startswith('vuke_tpu.'))
+assert not bad, bad
+print('OK', len(names))
 """
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([REPO] + SITE_DIRS)

@@ -1,11 +1,16 @@
-"""Rate measurement on the card: the full seed -> hash160 derive.
+"""Rate measurement on the card: the two derive paths of a scan.
 
-Port of ``vuke_tpu.benchmark.bench_derive``: milksad seeds -> K1 ->
-normalize -> K3 -> K4 -> K2 -> fragments, timed with CUDA events after a
-warm-up, each measured window fenced by ``torch.cuda.synchronize()``.
-The metric keeps the JAX package's name,
-``seed_to_hash160_derivations_per_sec``.  It runs only on a CUDA device:
-a measurement never falls back to the CPU.
+- ``bench_derive``, port of ``vuke_tpu.benchmark.bench_derive``: milksad
+  seeds -> K1 -> normalize -> K3 -> K4 -> K2 -> fragments, under the JAX
+  package's metric name ``seed_to_hash160_derivations_per_sec``;
+- ``bench_sequential``, port of ``vuke_tpu.benchmark.bench_sequential``:
+  contiguous keys -> K5 -> K4 -> K2 -> fragments from a cached offset
+  table, the base point stepped on the host inside the timed window,
+  under ``sequential_scan_derivations_per_sec``.
+
+Both are timed with CUDA events after a warm-up, each measured window
+fenced by ``torch.cuda.synchronize()``, best of 3 windows.  They run only
+on a CUDA device: a measurement never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -15,9 +20,12 @@ import time
 import torch
 
 from ._device import require_cuda, u32
+from .ecc.incremental import BaseStepper, build_offset_table, offset_table, sequential_core
 from .ecc.tiled import derive_hash160s_tiled
 
 METRIC = "seed_to_hash160_derivations_per_sec"
+SEQ_METRIC = "sequential_scan_derivations_per_sec"
+SEQ_START = 1 << 48
 
 
 def time_cuda(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -49,19 +57,29 @@ def _derive_step(dev: torch.device, batch: int):
     return step
 
 
-def bench_derive(batch: int = 1 << 19, iters: int = 20) -> dict:
-    """Full seed -> hash160 derive rate at ``batch`` seeds per call.
+def _sequential_step(dev: torch.device, batch: int, table):
+    """A callable deriving the next ``batch`` contiguous keys per call, from
+    ``SEQ_START`` on: the host steps the base point, then K5 -> K4 -> K2."""
+    offx, offy = table
+    stepper = BaseStepper(batch)
+    state = {"start": SEQ_START}
 
-    The best of 3 measured windows is reported (each ``iters`` calls on
-    fresh seeds, the first after 3 warm-up calls), with every window's
-    time beside it."""
-    dev = require_cuda()
-    step = _derive_step(dev, batch)
+    def step():
+        bx, by = stepper.base_for(state["start"])
+        state["start"] += batch
+        return sequential_core(bx, by, offx, offy)["frag_c"][0]
+
+    return step
+
+
+def _rate(metric: str, step, batch: int, iters: int, dev) -> dict:
+    """The best of 3 measured windows (each ``iters`` calls on fresh keys,
+    the first after 3 warm-up calls), with every window's time beside it."""
     window_ms = [time_cuda(step, iters=iters, warmup=3 if w == 0 else 0)
                  for w in range(3)]
     ms = min(window_ms)
     return {
-        "metric": METRIC,
+        "metric": metric,
         "derivations_per_sec": batch / (ms / 1e3),
         "ms_per_batch": ms,
         "window_ms": window_ms,
@@ -71,16 +89,35 @@ def bench_derive(batch: int = 1 << 19, iters: int = 20) -> dict:
     }
 
 
-def profile_derive(batch: int = 1 << 19, iters: int = 10) -> dict:
-    """Where a derive call's time goes on the card: device time per kernel
+def bench_derive(batch: int = 1 << 19, iters: int = 20) -> dict:
+    """Full milksad seed -> hash160 derive rate at ``batch`` seeds per call."""
+    dev = require_cuda()
+    return _rate(METRIC, _derive_step(dev, batch), batch, iters, dev)
+
+
+def bench_sequential(batch: int = 1 << 19, iters: int = 20) -> dict:
+    """Sequential-scan derive rate at ``batch`` keys per call.  The offset
+    table is built (K3 + K4 over 1..batch) before the clock starts; its
+    seconds are reported beside the rate."""
+    dev = require_cuda()
+    t0 = time.perf_counter()
+    table = build_offset_table(batch, dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    out = _rate(SEQ_METRIC, _sequential_step(dev, batch, table), batch, iters, dev)
+    out["offset_table_seconds"] = table_s
+    out["start"] = SEQ_START
+    return out
+
+
+def _profile(step, dev, batch: int, iters: int) -> dict:
+    """Where a call's time goes on the card: device time per kernel
     (``torch.profiler``, CUPTI) and the device's idle share of the host
     wall clock, per batch, over ``iters`` calls after a warm-up.  The
     profiler's own overhead is inside the wall clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    dev = require_cuda()
-    step = _derive_step(dev, batch)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -107,3 +144,16 @@ def profile_derive(batch: int = 1 << 19, iters: int = 10) -> dict:
         "kernels_ms_per_batch": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])),
         "device": torch.cuda.get_device_name(dev),
     }
+
+
+def profile_derive(batch: int = 1 << 19, iters: int = 10) -> dict:
+    """``_profile`` of the milksad derive step."""
+    dev = require_cuda()
+    return _profile(_derive_step(dev, batch), dev, batch, iters)
+
+
+def profile_sequential(batch: int = 1 << 19, iters: int = 10) -> dict:
+    """``_profile`` of the sequential-scan step (table built beforehand)."""
+    dev = require_cuda()
+    table = offset_table(batch, dev)
+    return _profile(_sequential_step(dev, batch, table), dev, batch, iters)

@@ -1,11 +1,11 @@
 """Command line of the port.
 
-    python -m vuke_tpu_torch scan --transform milksad --targets FILE \\
-        range --start A --end B [--batch N]
-    python -m vuke_tpu_torch bench [--batch N] [--profile]
+    python -m vuke_tpu_torch scan --transform milksad|direct:be --targets FILE \\
+        [--batch N] range --start A --end B
+    python -m vuke_tpu_torch bench [--batch N] [--sequential] [--profile]
 
-Only the milksad transform over a range source is ported; anything else
-stops with a "not ported yet" error.
+Only the milksad and direct:be transforms over a range source are ported;
+anything else stops with a "not ported yet" error.
 """
 
 from __future__ import annotations
@@ -16,9 +16,10 @@ import sys
 
 import torch
 
+from . import transforms
 from ._device import require_cuda
 
-PORTED_TRANSFORMS = ("milksad",)
+PORTED_TRANSFORMS = tuple(transforms.TRANSFORMS)      # milksad, direct:be
 
 
 def _not_ported(what: str):
@@ -30,7 +31,7 @@ def _print_hit(hit):
     d = hit.derived
     out.write("\n========== HIT ==========\n")
     out.write(f"Source: {hit.seed}\n")
-    out.write("Transform: milksad\n")
+    out.write(f"Transform: {hit.transform}\n")
     out.write(f"Matched: {hit.address} ({hit.address_type})\n")
     out.write("---\n")
     out.write(f"Private Key: {d.private_key_hex}\n")
@@ -52,7 +53,7 @@ def cmd_scan(args) -> int:
     from .matcher import TargetPools
     from .pipeline import scan_range
 
-    if args.transform not in PORTED_TRANSFORMS:
+    if args.transform.lower() not in PORTED_TRANSFORMS:
         _not_ported(f"transform {args.transform!r}")
     if args.source != "range":
         _not_ported(f"source {args.source!r}")
@@ -60,8 +61,8 @@ def cmd_scan(args) -> int:
     if pools.unparsed:
         print(f"warning: {len(pools.unparsed)} targets are not addresses and "
               f"cannot match", file=sys.stderr)
-    res = scan_range(args.start, args.end, pools, batch=args.batch,
-                     device=_device(args.device), on_hit=_print_hit)
+    res = scan_range(args.start, args.end, pools, transform=args.transform,
+                     batch=args.batch, device=_device(args.device), on_hit=_print_hit)
     print(json.dumps({"inputs_processed": res.inputs_processed,
                       "keys_generated": res.keys_generated,
                       "candidates": res.candidates,
@@ -70,11 +71,15 @@ def cmd_scan(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    from .benchmark import bench_derive, profile_derive
+    from . import benchmark
 
-    print(json.dumps(bench_derive(batch=args.batch)))
+    if args.sequential:
+        bench, prof = benchmark.bench_sequential, benchmark.profile_sequential
+    else:
+        bench, prof = benchmark.bench_derive, benchmark.profile_derive
+    print(json.dumps(bench(batch=args.batch)))
     if args.profile:
-        print(json.dumps(profile_derive(batch=args.batch)))
+        print(json.dumps(prof(batch=args.batch)))
     return 0
 
 
@@ -96,8 +101,11 @@ def build_parser() -> argparse.ArgumentParser:
         src.add_parser(name, help="not ported yet")
     scan.set_defaults(func=cmd_scan)
 
-    bench = sub.add_parser("bench", help="seed -> hash160 derive rate on the card")
+    bench = sub.add_parser("bench", help="derive rate on the card")
     bench.add_argument("--batch", type=int, default=1 << 19)
+    bench.add_argument("--sequential", action="store_true",
+                       help="the sequential scan's rate (direct:be) instead of "
+                            "the milksad seed -> hash160 derive")
     bench.add_argument("--profile", action="store_true",
                        help="also print device time per kernel and the idle share")
     bench.set_defaults(func=cmd_bench)

@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from vuke_tpu.ecc.ref import P
+from .ref import P
 
 M16 = 0xFFFF
 LIMBS = 16

@@ -18,11 +18,10 @@ import functools
 import numpy as np
 import torch
 
-from vuke_tpu.ecc import ref
-
 from .._device import MASK32, check_same_device, check_words, i64
 from ..kernels import PTR, SIZE, Kernel
 from . import field as F
+from . import ref
 
 WBITS = 10
 WINDOWS = 26                      # ceil(256 / 10), with 4 spare top bits
@@ -50,7 +49,7 @@ def _affine_add(p1, p2):
 def window_table() -> np.ndarray:
     """(26, 512, 16) uint32: entry [w, j] = affine (2j+1) * 2^(10w) * G,
     x as 8 LE 32-bit limbs then y as 8 LE limbs.  Built from
-    ``vuke_tpu.ecc.ref``'s curve constants; about 0.85 MB."""
+    ``ecc.ref``'s curve constants; about 0.85 MB."""
     out = np.zeros((WINDOWS, TSIZE, 16), dtype=np.uint32)
     shifts = np.arange(8, dtype=object) * 32
     base = (ref.GX, ref.GY)

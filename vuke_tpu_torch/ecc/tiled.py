@@ -17,11 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from vuke_tpu.ecc import ref
-
 from .._device import MASK32, byteswap32, i64, u32
 from ..cores import hash160, mt19937
-from . import inv, smul
+from . import inv, ref, smul
 
 _N_WORDS = [(ref.N >> (32 * (7 - i))) & MASK32 for i in range(8)]
 

@@ -1,8 +1,9 @@
 """Build-on-first-use loader for the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``.  No
-PyTorch headers are included, so a cold build takes seconds, not minutes.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into ONE shared library
+with a plain C interface, loaded with ``ctypes``.  No PyTorch headers are
+included, so a cold build takes seconds, not minutes.
 The library is keyed by a hash of the sources and flags and lives under
 ``vuke_tpu_torch/_build/`` (git-ignored); a rebuild happens only when a
 source changes.
@@ -31,7 +32,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 PTR = ctypes.c_void_p
 SIZE = ctypes.c_longlong
@@ -73,6 +74,36 @@ class Library:
     log: str                 # nvcc/ptxas output: registers and spills per kernel
 
 
+def _build(nvcc: str, so: Path) -> str:
+    """One ``nvcc -c`` per source, started together, then one link; returns
+    the compilers' output.  Raises if any step fails."""
+    tag = f"{so.stem}.{os.getpid()}"
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs, failed = [], []
+    for src, proc in zip(srcs, procs):
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{logs[-1]}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(logs)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> Library:
     """Build (if needed) and load the kernel library."""
@@ -82,17 +113,10 @@ def library() -> Library:
     if not so.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(nvcc, so)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        log_path.write_text(log)
     cdll = ctypes.CDLL(str(so))
     cdll.vk_error_string.argtypes = [INT]
     cdll.vk_error_string.restype = ctypes.c_char_p

@@ -1,7 +1,7 @@
 """Target matching on the device: exact membership of 8-byte fragments.
 
 Port of ``vuke_tpu.matcher.DeviceTargetSet``'s device side.  Target
-addresses decode to hash160s once (``vuke_tpu.encode.decode_address_h160``);
+addresses decode to hash160s once (``encode.decode_address_h160``);
 the first 8 bytes of each, read big-endian, are packed as ONE int64
 ``(hi << 32) | lo`` in two's complement.  Two pools, as in
 ``matcher.py:93-111``: the compressed pool holds every address (p2pkh and
@@ -24,7 +24,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from vuke_tpu import encode
+from . import encode
 
 
 def pack_fragments_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:

@@ -4,6 +4,9 @@
   40) float32 13-bit limbs -> the port's (26, 512, 16) uint32 table.
 - ``pools_from_jax``: the numpy form of ``DeviceTargetSet.device_args()``
   -> the port's ``TargetPools``.
+- ``offset_table_from_jax``: ``incremental.offset_table(n)``'s two
+  (16, nb, 8, 128) 16-bit-row stacks -> the port's two (8, n) uint32
+  LE-limb tensors, in the same lane order.
 
 Neither function imports jax: callers hand over numpy arrays.
 """
@@ -11,6 +14,7 @@ Neither function imports jax: callers hand over numpy arrays.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .matcher import TargetPools, pack_fragments_np
 
@@ -48,3 +52,21 @@ def pools_from_jax(comp_hi, comp_lo, uncomp_hi, uncomp_lo) -> TargetPools:
     comp = pack_fragments_np(np.asarray(comp_hi), np.asarray(comp_lo))
     uncomp = pack_fragments_np(np.asarray(uncomp_hi), np.asarray(uncomp_lo))
     return TargetPools(comp, uncomp)
+
+
+def _rows16_to_limbs32(rows: np.ndarray) -> torch.Tensor:
+    """(16, nb, 8, 128) 16-bit limb rows -> (8, n) uint32 LE limbs; lane
+    t * 1024 + 128 * r + c of the result is tile t, sublane r, lane c."""
+    rows = np.asarray(rows)
+    if rows.ndim != 4 or rows.shape[0] != 16 or rows.shape[2:] != (8, 128):
+        raise ValueError(f"expected (16, nb, 8, 128) limb rows, got {rows.shape}")
+    flat = rows.reshape(16, -1).astype(np.uint32)
+    if (flat >> 16).any():
+        raise ValueError("limb rows are not 16-bit")
+    return torch.from_numpy(flat[0::2] | (flat[1::2] << np.uint32(16)))
+
+
+def offset_table_from_jax(offx: np.ndarray, offy: np.ndarray):
+    """The JAX offset table (affine (i + 1) * G, x and y as 16-bit rows) ->
+    the port's (8, n) uint32 LE-limb ``(offx, offy)`` on the CPU."""
+    return _rows16_to_limbs32(offx), _rows16_to_limbs32(offy)

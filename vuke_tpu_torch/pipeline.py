@@ -1,28 +1,37 @@
-"""The forward-search engine's milksad slice: seed lattice in, hits out.
+"""The forward-search engine over a range source: seed lattice in, hits out.
 
-Port of ``vuke_tpu/pipeline.py``'s device program and scan loop for the
-milksad transform over a range source: MT19937 seeds -> hash160s (the
-kernels of ``ecc/tiled.py``) -> fragment membership in the target pools ->
-a bit-packed hit mask.  Only the mask crosses to the host; the host
-unpacks it on the rare hit batch and confirms each candidate with
-``vuke_tpu.derive.KeyDeriver`` against the target address strings.
+Port of ``vuke_tpu/pipeline.py``'s device programs and scan loop for the
+ported numeric transforms (``transforms.py``).  Each superbatch takes one
+of two device paths, as ``pipeline.ScanProgram`` chooses in the JAX
+package:
 
-Unlike ``pipeline.DeriveMatcher.run`` in the JAX package, a failure on the
-device is not caught and retried on another path: it raises.
+- keygen -> the K3 derive of ``ecc/tiled.py``;
+- ``SequentialScan``: for a transform whose key is the seed, one point
+  addition per key from a cached offset table (``ecc/incremental.py``),
+  whenever ``sequential_safe`` allows it.
+
+Both end in fragment membership in the target pools and a bit-packed hit
+mask.  Only the mask crosses to the host; the host unpacks it on the rare
+hit batch and confirms each candidate with ``derive.KeyDeriver`` against
+the target address strings.
+
+Unlike the JAX package, a failure on the device (a kernel, the offset
+table's build) is not caught and retried on another path: it raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
 
-from vuke_tpu.derive import DerivedKey, KeyDeriver
-
+from . import transforms
 from ._device import MASK32, u32
-from .cores import mt19937
-from .ecc.tiled import derive_hash160s_tiled, derive_tiled_from_words
+from .derive import DerivedKey, KeyDeriver
+from .ecc.incremental import BaseStepper, offset_table, sequential_core, sequential_safe
+from .ecc.tiled import derive_tiled_from_words
 from .matcher import TargetPools
 
 DEFAULT_BATCH = 1 << 19
@@ -53,28 +62,68 @@ def seed_lattice(start: int, offsets: torch.Tensor):
     return u32(hi), u32(lo)
 
 
-class DeriveMatcher:
-    """The shared hot program: seeds or key words -> hash160s -> matches."""
+def match(pools: TargetPools, d: dict, valid: torch.Tensor) -> dict:
+    """A derive dict's fragments -> ``n_valid``, ``count`` (0-d int64
+    tensors) and ``mask_packed`` ((N/32,) uint32), on the input's device."""
+    m = pools.lookup(d["frag_c"], d["frag_u"]) & valid
+    return {"n_valid": valid.sum(), "count": m.sum(), "mask_packed": pack_mask(m)}
 
-    def __init__(self, pools: TargetPools):
+
+class SequentialScan:
+    """Contiguous keys, one affine point addition each: the offset table
+    (built here, once per batch size and device), an int64 lane index and
+    the host base point of each superbatch."""
+
+    def __init__(self, pools: TargetPools, batch: int, device):
         self.pools = pools
+        self.batch = batch
+        self.offx, self.offy = offset_table(batch, device)
+        self.offsets = torch.arange(batch, dtype=torch.int64, device=device)
+        self.stepper = BaseStepper(batch)
 
-    def run(self, keys_or_seeds: torch.Tensor, valid: torch.Tensor) -> dict:
-        """``keys_or_seeds``: (N,) uint32 milksad seeds, or (8, N) uint32 BE
-        key words.  ``valid``: (N,) bool.  Returns ``n_valid``, ``count``
-        (0-d int64 tensors) and ``mask_packed`` ((N/32,) uint32), all on
-        the input's device."""
-        if keys_or_seeds.dim() == 1:
-            d = derive_hash160s_tiled(keys_or_seeds)
-        else:
-            d = derive_tiled_from_words(keys_or_seeds)
-        m = self.pools.lookup(d["frag_c"], d["frag_u"]) & valid
-        return {"n_valid": valid.sum(), "count": m.sum(), "mask_packed": pack_mask(m)}
+    def run(self, start: int, limit: int) -> dict:
+        """Keys start .. start + batch - 1; lanes from ``limit`` on are
+        masked out."""
+        bx, by = self.stepper.base_for(start)
+        d = sequential_core(bx, by, self.offx, self.offy)
+        return match(self.pools, d, self.offsets < limit)
+
+
+class ScanProgram:
+    """One numeric transform over superbatches of ``batch`` seeds.
+
+    A transform with a ``sequential_slot`` takes ``SequentialScan`` for
+    every superbatch that ``sequential_safe`` allows (its table is built on
+    the first such superbatch); every other superbatch takes keygen -> the
+    K3 derive."""
+
+    def __init__(self, transform: transforms.NumericTransform, pools: TargetPools,
+                 batch: int, device):
+        self.transform = transform
+        self.pools = pools
+        self.batch = batch
+        self.device = torch.device(device)
+        self.offsets = torch.arange(batch, dtype=torch.int64, device=self.device)
+        self._seq: Optional[SequentialScan] = None
+
+    def run(self, start: int, limit: int) -> dict:
+        """The superbatch of seeds start .. start + batch - 1, lanes from
+        ``limit`` on masked out."""
+        if (self.transform.sequential_slot is not None
+                and sequential_safe(start, self.batch)):
+            if self._seq is None:
+                self._seq = SequentialScan(self.pools, self.batch, self.device)
+            return self._seq.run(start, limit)
+        hi, lo = seed_lattice(start, self.offsets)
+        words, valid = self.transform.keygen(hi, lo)
+        return match(self.pools, derive_tiled_from_words(words),
+                     valid & (self.offsets < limit))
 
 
 @dataclass
 class Hit:
     seed: int
+    transform: str               # the transform's display name
     address: str
     address_type: str            # p2pkh_compressed | p2pkh_uncompressed | p2wpkh
     derived: DerivedKey
@@ -88,51 +137,50 @@ class ScanResult:
     hits: list = field(default_factory=list)
 
 
-def _confirm(seed: int, targets: frozenset, deriver: KeyDeriver):
+def _confirm(seed: int, transform: transforms.NumericTransform, targets: frozenset,
+             deriver: KeyDeriver):
     """Host confirm of one candidate seed against the address strings, in
     the reference's order (compressed p2pkh, uncompressed p2pkh, p2wpkh)."""
-    kw = mt19937.milksad_key_words(torch.tensor([seed], dtype=torch.int64)
-                                   .to(torch.uint32))
-    key = b"".join(int(v).to_bytes(4, "big") for v in kw[:, 0].to(torch.int64))
+    key = transform.key_for(seed)
+    if key is None:
+        return None
     derived = deriver.derive(key)
     for kind, addr in (("p2pkh_compressed", derived.p2pkh_compressed),
                        ("p2pkh_uncompressed", derived.p2pkh_uncompressed),
                        ("p2wpkh", derived.p2wpkh)):
         if addr in targets:
-            return Hit(seed, addr, kind, derived)
+            return Hit(seed, transform.display, addr, kind, derived)
     return None
 
 
-def scan_range(start: int, end: int, pools: TargetPools, *,
-               batch: int = DEFAULT_BATCH, device: torch.device,
-               on_hit=None) -> ScanResult:
-    """milksad over the inclusive u64 seed range [start, end].
+def scan_range(start: int, end: int, pools: TargetPools, *, transform="milksad",
+               batch: int = DEFAULT_BATCH, device, on_hit=None) -> ScanResult:
+    """``transform`` (a name or a ``NumericTransform``) over the inclusive
+    u64 seed range [start, end].
 
-    Seeds above 2^32 - 1 are counted as inputs but yield no key.  Every
-    batch runs at full width; lanes past ``end`` are masked out.
-    ``on_hit`` is called with each confirmed ``Hit`` as it is found."""
+    Every superbatch runs at full width; lanes past ``end`` are masked out,
+    as are seeds the transform yields no key for (milksad above 2^32 - 1),
+    which count as inputs only.  ``on_hit`` is called with each confirmed
+    ``Hit`` as it is found."""
     if batch % 32:
         raise ValueError(f"batch {batch} is not a multiple of 32")
-    device = torch.device(device)
-    dm = DeriveMatcher(pools)
+    if isinstance(transform, str):
+        transform = transforms.get(transform)
+    prog = ScanProgram(transform, pools, batch, device)
     deriver = KeyDeriver()
-    offsets = torch.arange(batch, dtype=torch.int64, device=device)
     result = ScanResult()
     pos = start
     while pos <= end:
         n = min(batch, end - pos + 1)
-        hi, lo = seed_lattice(pos, offsets)
-        valid = (offsets < n) & (hi.to(torch.int64) == 0)
-        out = dm.run(lo, valid)
+        out = prog.run(pos, n)
         result.inputs_processed += n
         result.keys_generated += int(out["n_valid"])
         count = int(out["count"])
         if count:
             result.candidates += count
             packed = out["mask_packed"].to(torch.int64).cpu().numpy()
-            lanes = np.nonzero(unpack_mask(packed, batch))[0]
-            for lane in lanes:
-                hit = _confirm(pos + int(lane), pools.targets, deriver)
+            for lane in np.nonzero(unpack_mask(packed, batch))[0]:
+                hit = _confirm(pos + int(lane), transform, pools.targets, deriver)
                 if hit is not None:
                     result.hits.append(hit)
                     if on_hit is not None:
