@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives vuke_tpu_torch's two scan paths on the card, the milksad seed ->
-hash160 -> target match (K1 -> K3 -> K4 -> K2) and the sequential direct:be
-scan (K5 -> K4 -> K2), and fails (non-zero exit, no result line) unless
-every phase passes:
+Drives vuke_tpu_torch's scan paths on the card, the milksad seed ->
+hash160 -> target match (K1 -> K3 -> K4 -> K2), the sequential direct:be
+scan (K5 -> K4 -> K2), and both again with the byte-window scalar
+multiplication (``VUKE_TPU_SMUL13=0``: K6 in place of K3), and fails
+(non-zero exit, no result line) unless every phase passes:
 
 1. environment: torch / CUDA / nvcc versions, capability (9, 0), the
    card's name, power limit and maximum SM clock;
@@ -17,6 +18,11 @@ every phase passes:
    path on the card (lane-exact) and 256 sampled lanes against the host;
    4b. the sequential derive at batch 2^19 across 2^63 against the K3 path
    on the same keys, the plain path and 256 host lanes;
+   4c. the milksad derive with ``smul13=False`` (K6) against the K3 path
+   and the plain K6 path on the same seeds; K6 launched, K3 not;
+   4d. the lane-major ``ecc/pubkey.derive_hash160s`` under each kernel
+   against the tile-layout path, and 256 lanes of x, y, parity against
+   the host;
 5. the milksad main path through the user's entry point (the ``scan``
    command) over 2^22 seeds with one planted target among 4096 decoys:
    exactly that hit; the path's launch counts are reset before and read
@@ -25,9 +31,13 @@ every phase passes:
    superbatch sequential), and [1, 2^21], whose first two superbatches
    take K3 and last two K5; each finds exactly its planted key, and each
    run's launch counts are reset before and read after;
-6. the derive rates (seed_to_hash160_derivations_per_sec,
-   sequential_scan_derivations_per_sec) and each kernel's time against its
-   plain version's and its bound at the path's shapes (CUDA events).
+   5c. both scans again with ``VUKE_TPU_SMUL13=0`` set around the command:
+   milksad over 2^22 seeds and direct:be over [1, 2^21], with K6 launched
+   in place of K3 (also for the offset table) and K3 never;
+6. the derive rates (seed_to_hash160_derivations_per_sec through K3 and
+   through K6, sequential_scan_derivations_per_sec) and each kernel's time
+   against its plain version's and its bound at the path's shapes (CUDA
+   events).
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
@@ -41,6 +51,7 @@ import contextlib
 import hashlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -55,14 +66,14 @@ from vuke_tpu_torch.benchmark import bench_derive, bench_sequential, time_cuda
 from vuke_tpu_torch.cores import hash160, mt19937
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
-from vuke_tpu_torch.ecc import inv, ref, smul, tiled
+from vuke_tpu_torch.ecc import inv, pubkey, ref, smul, smul_w8, tiled
 
 N_KERNEL = 16384
 BATCH = 1 << 19
 SCAN_SEEDS = 1 << 22
 SEQ_SCAN_KEYS = 1 << 24
-KERNELS = {"mt19937": mt19937.KERNEL, "smul": smul.KERNEL, "seq_madd": inc.KERNEL,
-           "inv_affine": inv.KERNEL, "hash160": hash160.KERNEL}
+KERNELS = {"mt19937": mt19937.KERNEL, "smul": smul.KERNEL, "smul_w8": smul_w8.KERNEL,
+           "seq_madd": inc.KERNEL, "inv_affine": inv.KERNEL, "hash160": hash160.KERNEL}
 MILKSAD_PATH = ("mt19937", "smul", "inv_affine", "hash160")
 
 # Least time for each kernel's work at N lanes: the larger of its bytes over
@@ -77,6 +88,9 @@ WORK_PER_LANE = {
     # 32 B scalar in, 4 x 32 B out; 25 additions x 10 field products x 64
     # 32x32-bit multiplies (the 0.85 MB table is added once below)
     "smul": (160, 25 * 10 * 64),
+    # 32 B scalar in, 4 x 32 B out; 31 additions x 10 field products x 64
+    # multiplies (window 0 only seeds; the 512 KiB table is added once below)
+    "smul_w8": (160, 31 * 10 * 64),
     # 2 x 32 B offset in, 4 x 32 B out; 5M + 2S = 7 field products x 64
     "seq_madd": (192, 7 * 64),
     # 4 x 32 B in, 2 x 32 B out; Montgomery batch inversion, 8 products x 64
@@ -86,7 +100,8 @@ WORK_PER_LANE = {
     # plus 2 RIPEMD-160 blocks x 160 steps x 2
     "hash160": (104, 3 * 64 * 6 + 2 * 160 * 2),
 }
-SMUL_TABLE_BYTES = smul.WINDOWS * smul.TSIZE * 64
+TABLE_BYTES = {"smul": smul.WINDOWS * smul.TSIZE * 64,
+               "smul_w8": smul_w8.WINDOWS * smul_w8.TSIZE * 64}
 
 
 def say(msg: str) -> None:
@@ -273,6 +288,7 @@ def phase_kernels(dev, rng) -> dict:
         f"kernel == plain bit-exact (max abs err 0); K3-output lanes == point_mul; "
         f"8 lanes of unreduced inputs in [p, 2^256) == X/ZZ, Y/ZZZ mod p")
 
+    errs["smul_w8"] = phase_k6(dev, rng)
     errs["seq_madd"] = phase_k5(dev, rng)
 
     # K2: random x, y
@@ -290,6 +306,37 @@ def phase_kernels(dev, rng) -> dict:
     say(f"[3 K2 hash160] N={N_KERNEL} kernel == plain lane-exact (max abs err 0); "
         f"64 lanes == host SHA-256 + {ripemd160_source()}")
     return errs
+
+
+def phase_k6(dev, rng) -> int:
+    """K6 against its plain version at N_KERNEL, lane-exact after canonical
+    reduction mod p, on byte-window edge cases before normalization (zero
+    windows below the only digit, n - 1 with top byte 0xFF, the largest
+    k < n whose low 31 bytes are 0xFF, k with only the top byte set) and
+    random scalars; 64 lanes against point_mul."""
+    n, p = N, P
+    adv = [0, 1, 2, 255, 256, 257, 1 << 32, 1 << 128, 1 << 248, 1 << 255, n - 1, n - 2,
+           n, n + 1, (1 << 256) - 1, (0xFF << 248) - 1, 0xFF << 248]
+    rand = [int.from_bytes(rng.bytes(32), "big") for _ in range(N_KERNEL - len(adv))]
+    norm = tiled.normalize_words(words_be(adv + rand).to(dev))
+    outs = smul_w8.scalar_mul(norm)
+    plain = smul_w8.scalar_mul_plain(norm, smul_w8.table_on(str(dev)))
+    err = exact_err("K6 (mod p)", [F.canonical(F.from_u32_le(a)) for a in outs],
+                    [F.canonical(F.from_u32_le(a)) for a in plain])
+    oracle = list(range(len(adv))) + rng.choice(
+        np.arange(len(adv), N_KERNEL), 64 - len(adv), replace=False).tolist()
+    X, Y, ZZ, ZZZ = (a.cpu() for a in outs)
+    norm_cpu = norm.cpu()
+    for j in oracle:
+        k = lane_int_be(norm_cpu, j)
+        gx = lane_int_le(X, j) * pow(lane_int_le(ZZ, j), -1, p) % p
+        gy = lane_int_le(Y, j) * pow(lane_int_le(ZZZ, j), -1, p) % p
+        if (gx, gy) != point_mul(k):
+            raise AssertionError(f"K6 lane {j} (k={k:#x}) differs from point_mul")
+    say(f"[3 K6 smul_w8] N={N_KERNEL} kernel == plain mod p, lane-exact after canonical "
+        f"reduction (max abs err 0); 64 lanes == point_mul (0, 1, 2, 255, 256, 257, 2^32, "
+        f"2^128, 2^248, 2^255, n-1, n-2, n, n+1, 2^256-1, 0xFEFF..FF, 0xFF<<248 included)")
+    return err
 
 
 def phase_k5(dev, rng) -> int:
@@ -401,6 +448,86 @@ def phase_derive(dev, rng):
         f"plain {t_p:.3f} s)")
 
 
+def launch_counts() -> dict:
+    return {name: kern.launches for name, kern in KERNELS.items()}
+
+
+def phase_derive_k6(dev, rng):
+    """The milksad derive at batch 2^19 with ``smul13=False``: K6 in place
+    of K3, lane-exact against the K3 path and the plain K6 path."""
+    seeds_np = rng.integers(0, 1 << 32, BATCH, dtype=np.uint32)
+    seeds_np[:4] = [0, 1, 5489, 0xFFFFFFFF]
+    seeds = torch.from_numpy(seeds_np).to(dev)
+    before = launch_counts()
+    d = tiled.derive_hash160s_tiled(seeds, smul13=False)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    if after["smul_w8"] != before["smul_w8"] + 1 or after["smul"] != before["smul"]:
+        raise AssertionError(f"smul13=False derive: launches {before} -> {after}")
+    d3 = tiled.derive_hash160s_tiled(seeds, smul13=True)
+    t0 = time.perf_counter()
+    dp = tiled.derive_hash160s_tiled(seeds, smul13=False, plain=True)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+
+    def flat(dd):
+        return [dd["h160c"], dd["h160u"], *dd["frag_c"], *dd["frag_u"]]
+
+    exact_err("K6 derive vs K3 derive", flat(d), flat(d3))
+    exact_err("K6 derive vs plain K6 path", flat(d), flat(dp))
+    say(f"[4c K6 derive] batch {BATCH}, smul13=False: K6 launched once, K3 not; == K3 path "
+        f"and == plain K6 path lane-exact for h160c, h160u, frag_c, frag_u (plain path "
+        f"{t_p:.3f} s host wall clock)")
+
+
+def phase_pubkey(dev, rng):
+    """``pubkey.derive_hash160s`` (lane-major words) at 2^19 under each
+    kernel against the tile-layout path; x, y and parity on 256 lanes
+    against the host."""
+    raw = rng.integers(0, 1 << 32, (8, BATCH), dtype=np.uint32)
+    raw[:, :4] = words_be([0, 1, N - 1, (1 << 256) - 1]).numpy()
+    norm = tiled.normalize_words(torch.from_numpy(raw).to(dev))
+    lanes = norm.T.contiguous()
+    tile = tiled.derive_tiled_from_words(norm, smul13=True)
+    outs = {}
+    for smul13, name in ((True, "smul"), (False, "smul_w8")):
+        before = launch_counts()
+        outs[name] = pubkey.derive_hash160s(lanes, smul13=smul13)
+        other = "smul_w8" if smul13 else "smul"
+        after = launch_counts()
+        if after[name] != before[name] + 1 or after[other] != before[other]:
+            raise AssertionError(f"pubkey smul13={smul13}: launches {before} -> {after}")
+        exact_err(f"pubkey ({name}) vs tile path", [outs[name]["h160c"], outs[name]["h160u"]],
+                  [tile["h160c"], tile["h160u"]])
+    keys = ("x_words", "y_words", "y_odd")
+    exact_err("pubkey K6 vs K3", [outs["smul_w8"][k] for k in keys],
+              [outs["smul"][k] for k in keys])
+    d = {k: outs["smul_w8"][k].cpu() for k in keys}
+    norm_cpu = norm.cpu()
+    for j in [0, 1, 2, 3] + rng.choice(np.arange(4, BATCH), 252, replace=False).tolist():
+        x, y = point_mul(lane_int_be(norm_cpu, j))
+        if (lane_int_be(d["x_words"].T, j), lane_int_be(d["y_words"].T, j),
+                bool(d["y_odd"][j])) != (x, y, bool(y & 1)):
+            raise AssertionError(f"pubkey lane {j} differs from the host")
+    say(f"[4d pubkey] derive_hash160s of {BATCH} lane-major words under K3 and under K6: "
+        f"h160c, h160u == tile-layout path lane-exact; x_words, y_words, y_odd equal across "
+        f"kernels; 256 lanes (k = 1, 1, n-1, 2^256-1-n first) == host point_mul")
+
+
+@contextlib.contextmanager
+def smul13_off():
+    """``VUKE_TPU_SMUL13=0`` for the block; the variable alone is restored."""
+    old = os.environ.get("VUKE_TPU_SMUL13")
+    os.environ["VUKE_TPU_SMUL13"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["VUKE_TPU_SMUL13"]
+        else:
+            os.environ["VUKE_TPU_SMUL13"] = old
+
+
 def run_scan(transform: str, start: int, end: int, planted: int, target: str,
              decoys: list, keys: int, display: str):
     """One ``scan`` through the command line against the decoys plus
@@ -419,7 +546,7 @@ def run_scan(transform: str, start: int, end: int, planted: int, target: str,
                        "--end", str(end)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    launches = launch_counts()
     text = out.getvalue()
     summary = json.loads(text.strip().splitlines()[-1])
     if rc != 0 or summary["matches_found"] != 1 or text.count("========== HIT") != 1:
@@ -450,7 +577,7 @@ def phase_scan(dev, rng, decoys) -> dict:
     summary, launches, secs = run_scan("milksad", start, end, planted, target, decoys,
                                        SCAN_SEEDS, "milksad")
     check_launches("milksad scan", launches,
-                   {name: None for name in MILKSAD_PATH} | {"seq_madd": 0})
+                   {name: None for name in MILKSAD_PATH} | {"seq_madd": 0, "smul_w8": 0})
     say(f"[5 scan] milksad range [{start}, {end}] ({SCAN_SEEDS} seeds, batch {BATCH}) vs "
         f"4096 decoys + 1 planted: exactly 1 hit, seed {planted} -> {target}; "
         f"{summary['candidates']} device candidates; {secs:.2f} s host wall clock; "
@@ -473,7 +600,7 @@ def phase_seq_scan(dev, rng, decoys) -> list:
                                        SEQ_SCAN_KEYS, "direct")
     check_launches("direct:be scan across 2^63", launches,
                    {"seq_madd": batches, "inv_affine": batches, "hash160": batches,
-                    "smul": 0, "mt19937": 0})
+                    "smul": 0, "smul_w8": 0, "mt19937": 0})
     runs.append(launches)
     say(f"[5b direct:be scan] range [2^63 - {SEQ_SCAN_KEYS // 2}, 2^63 + {SEQ_SCAN_KEYS // 2}) "
         f"({SEQ_SCAN_KEYS} keys, batch "
@@ -485,7 +612,8 @@ def phase_seq_scan(dev, rng, decoys) -> list:
     target = p2pkh_address(host_h160s(700)[0])
     summary, launches, secs = run_scan("direct:be", 1, end, 700, target, decoys, end, "direct")
     check_launches("direct:be scan of [1, 2^21]", launches,
-                   {"smul": 2, "seq_madd": 2, "inv_affine": 4, "hash160": 4, "mt19937": 0})
+                   {"smul": 2, "smul_w8": 0, "seq_madd": 2, "inv_affine": 4, "hash160": 4,
+                    "mt19937": 0})
     runs.append(launches)
     say(f"[5b direct:be scan] range [1, {end}] vs 4096 decoys + key 700: exactly 1 hit; "
         f"superbatches from 1 and {BATCH + 1} took K3, from {2 * BATCH + 1} and "
@@ -494,18 +622,64 @@ def phase_seq_scan(dev, rng, decoys) -> list:
     return runs
 
 
+def phase_scan_k6(dev, rng, decoys) -> list:
+    """Both scans through ``scan`` with ``VUKE_TPU_SMUL13=0`` around the
+    command.  milksad over 2^22 seeds: K6 once per superbatch, K3 never.
+    direct:be over [1, 2^21]: K6 for the two unsafe superbatches and once
+    more for the offset table, which no earlier phase built with K6 (its
+    cache key holds the kernel); K5 for the last two."""
+    runs = []
+    start = 1_000_000_000
+    end = start + SCAN_SEEDS - 1
+    planted = int(rng.integers(start, end + 1))
+    k = int.from_bytes(host_milksad_key(planted), "big") % N or 1
+    target = p2pkh_address(host_h160s(k)[0])
+    batches = SCAN_SEEDS // BATCH
+    with smul13_off():
+        summary, launches, secs = run_scan("milksad", start, end, planted, target, decoys,
+                                           SCAN_SEEDS, "milksad")
+    check_launches("milksad scan, VUKE_TPU_SMUL13=0", launches,
+                   {"smul_w8": batches, "smul": 0, "mt19937": batches, "inv_affine": batches,
+                    "hash160": batches, "seq_madd": 0})
+    runs.append(launches)
+    say(f"[5c scan, VUKE_TPU_SMUL13=0] milksad range [{start}, {end}] ({SCAN_SEEDS} seeds, "
+        f"batch {BATCH}) vs 4096 decoys + 1 planted: exactly 1 hit, seed {planted} -> "
+        f"{target}; {summary['candidates']} device candidates; {secs:.2f} s host wall clock; "
+        f"launches {launches}")
+
+    end = 4 * BATCH
+    target = p2pkh_address(host_h160s(700)[0])
+    with smul13_off():
+        summary, launches, secs = run_scan("direct:be", 1, end, 700, target, decoys, end,
+                                           "direct")
+    check_launches("direct:be scan of [1, 2^21], VUKE_TPU_SMUL13=0", launches,
+                   {"smul_w8": 3, "smul": 0, "seq_madd": 2, "inv_affine": 5, "hash160": 4,
+                    "mt19937": 0})
+    runs.append(launches)
+    say(f"[5c direct:be scan, VUKE_TPU_SMUL13=0] range [1, {end}] vs 4096 decoys + key 700: "
+        f"exactly 1 hit; superbatches from 1 and {BATCH + 1} took K6, the offset table was "
+        f"built with K6, from {2 * BATCH + 1} and {3 * BATCH + 1} took K5; {secs:.2f} s "
+        f"host wall clock; launches {launches}")
+    return runs
+
+
 def bound(name: str, n: int, int_ops_per_s: float):
     """(bound_ms, bound_by) of ``name``'s work at ``n`` lanes."""
     nbytes, ops = WORK_PER_LANE[name]
-    t_bytes = (nbytes * n + (SMUL_TABLE_BYTES if name == "smul" else 0)) / HBM_BYTES_PER_S
+    t_bytes = (nbytes * n + TABLE_BYTES.get(name, 0)) / HBM_BYTES_PER_S
     t_ops = ops * n / int_ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_rate(dev, rng, card: str, int_ops_per_s: float) -> dict:
     r = bench_derive(batch=BATCH)
-    say(f"[6 rate] {r['metric']} = {r['derivations_per_sec']:.0f} at batch {BATCH} "
-        f"({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}) [{card}]")
+    say(f"[6 rate] {r['metric']} through {r['smul']} = {r['derivations_per_sec']:.0f} at "
+        f"batch {BATCH} ({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}) "
+        f"[{card}]")
+    r = bench_derive(batch=BATCH, smul13=False)
+    say(f"[6c rate] {r['metric']} through {r['smul']} = {r['derivations_per_sec']:.0f} at "
+        f"batch {BATCH} ({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}) "
+        f"[{card}]")
     r = bench_sequential(batch=BATCH)
     say(f"[6b rate] {r['metric']} = {r['derivations_per_sec']:.0f} at batch {BATCH} "
         f"({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}); offset table "
@@ -513,6 +687,7 @@ def phase_rate(dev, rng, card: str, int_ops_per_s: float) -> dict:
     seeds = torch.from_numpy(rng.integers(0, 1 << 32, BATCH, dtype=np.uint32)).to(dev)
     norm = tiled.normalize_words(mt19937.milksad_key_words(seeds))
     table = smul.table_on(str(dev))
+    table_w8 = smul_w8.table_on(str(dev))
     outs = smul.scalar_mul(norm)
     x, y = inv.affine(*outs)
     offx, offy = inc.offset_table(BATCH, dev)
@@ -522,6 +697,8 @@ def phase_rate(dev, rng, card: str, int_ops_per_s: float) -> dict:
                     lambda: mt19937.milksad_key_words_plain(seeds)),
         "smul": (lambda: smul.scalar_mul(norm),
                  lambda: smul.scalar_mul_plain(norm, table)),
+        "smul_w8": (lambda: smul_w8.scalar_mul(norm),
+                    lambda: smul_w8.scalar_mul_plain(norm, table_w8)),
         "seq_madd": (lambda: inc.seq_madd(offx, offy, bx, by),
                      lambda: inc.seq_madd_plain(offx, offy, bx, by)),
         "inv_affine": (lambda: inv.affine(*outs), lambda: inv.affine_plain(*outs)),
@@ -546,8 +723,11 @@ def main() -> int:
     errs = phase_kernels(dev, rng)
     phase_derive(dev, rng)
     phase_seq_derive(dev, rng)
+    phase_derive_k6(dev, rng)
+    phase_pubkey(dev, rng)
     decoys = [p2pkh_address(rng.bytes(20)) for _ in range(4096)]
-    runs = [phase_scan(dev, rng, decoys)] + phase_seq_scan(dev, rng, decoys)
+    runs = ([phase_scan(dev, rng, decoys)] + phase_seq_scan(dev, rng, decoys)
+            + phase_scan_k6(dev, rng, decoys))
     times = phase_rate(dev, rng, card, int_ops_per_s)
     summary = {"kernels": [
         {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,

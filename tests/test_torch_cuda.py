@@ -14,7 +14,7 @@ import torch
 from vuke_tpu_torch.cores import hash160, mt19937
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
-from vuke_tpu_torch.ecc import inv, ref, smul, tiled
+from vuke_tpu_torch.ecc import inv, pubkey, ref, smul, smul_w8, tiled
 
 pytestmark = [
     pytest.mark.cuda_only,
@@ -65,6 +65,25 @@ def test_smul_kernel_matches_plain_mod_p(dev):
         assert _eq(F.canonical(F.from_u32_le(g)), F.canonical(F.from_u32_le(w)))
 
 
+def test_smul_w8_kernel_matches_plain_mod_p(dev):
+    """K6 on byte-window edge cases (zero windows below the only digit, the
+    top window at n - 1 and at 0xFEFF..FF) and random scalars."""
+    n = ref.N
+    ks = [0, 1, 2, 255, 256, 257, 1 << 32, 1 << 128, 1 << 248, 1 << 255, n - 1, n - 2,
+          n, n + 1, (1 << 256) - 1, (0xFF << 248) - 1, 0xFF << 248]
+    rng = np.random.default_rng(4)
+    ks += [int.from_bytes(rng.bytes(32), "big") for _ in range(N - len(ks))]
+    w = np.array([[(k >> (32 * (7 - i))) & 0xFFFFFFFF for k in ks] for i in range(8)],
+                 dtype=np.uint32)
+    norm = tiled.normalize_words(torch.from_numpy(w).to(dev))
+    before = smul_w8.KERNEL.launches
+    got = smul_w8.scalar_mul(norm)
+    assert smul_w8.KERNEL.launches == before + 1
+    want = smul_w8.scalar_mul_plain(norm, smul_w8.table_on(str(dev)))
+    for g, w in zip(got, want):
+        assert _eq(F.canonical(F.from_u32_le(g)), F.canonical(F.from_u32_le(w)))
+
+
 def test_inv_affine_kernel_matches_plain(dev):
     outs = smul.scalar_mul(_scalars(dev))
     for g, w in zip(inv.affine(*outs), inv.affine_plain(*outs)):
@@ -110,6 +129,26 @@ def test_derive_kernels_match_plain_path(dev):
         assert _eq(a[key], b[key])
     for key in ("frag_c", "frag_u"):
         assert all(_eq(g, w) for g, w in zip(a[key], b[key]))
+
+
+def test_k6_derive_matches_k3_derive(dev):
+    """The tile-layout derive with ``smul13=False`` launches K6, not K3,
+    and equals the K3 derive lane for lane; so does the lane-major API on
+    a batch that is not a multiple of the inversion chunk."""
+    s = _seeds(dev, 1 << 14)
+    k3, k6 = smul.KERNEL.launches, smul_w8.KERNEL.launches
+    a = tiled.derive_hash160s_tiled(s, smul13=False)
+    assert (smul.KERNEL.launches, smul_w8.KERNEL.launches) == (k3, k6 + 1)
+    b = tiled.derive_hash160s_tiled(s, smul13=True)
+    for key in ("h160c", "h160u"):
+        assert _eq(a[key], b[key])
+    for key in ("frag_c", "frag_u"):
+        assert all(_eq(g, w) for g, w in zip(a[key], b[key]))
+    words = _scalars(dev).T[:N - 3].contiguous()
+    pa = pubkey.derive_hash160s(words, smul13=False)
+    pb = pubkey.derive_hash160s(words, smul13=True)
+    for key in pa:
+        assert _eq(pa[key], pb[key])
 
 
 @pytest.mark.parametrize("k", [(1 << 64) - 2, (1 << 32) + 1, 1026])

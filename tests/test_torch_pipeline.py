@@ -1,5 +1,6 @@
 """vuke_tpu_torch scan plumbing: mask packing, the u64 seed carry, a planted
-milksad scan on the CPU, the command line, and the jax-free import rule."""
+milksad scan on the CPU (also with ``VUKE_TPU_SMUL13=0``, through K6's plain
+version), the command line, and the jax-free import rule."""
 
 import os
 import subprocess
@@ -63,6 +64,51 @@ def test_scan_range_skips_seeds_past_u32():
     assert res.hits == []
 
 
+@pytest.fixture
+def k6_only(monkeypatch):
+    """``VUKE_TPU_SMUL13=0``; counts the calls of K6's plain version, and
+    K3's plain version fails if it is reached."""
+    from vuke_tpu_torch.ecc import incremental, smul, smul_w8
+
+    calls = []
+    k6_plain = smul_w8.scalar_mul_plain
+
+    def counted(words, table):
+        calls.append(words.shape[1])
+        return k6_plain(words, table)
+
+    def refused(words, table):
+        raise AssertionError("K3 ran with VUKE_TPU_SMUL13=0")
+
+    monkeypatch.setenv("VUKE_TPU_SMUL13", "0")
+    monkeypatch.setattr(smul_w8, "scalar_mul_plain", counted)
+    monkeypatch.setattr(smul, "scalar_mul_plain", refused)
+    incremental._cached_table.cache_clear()
+    yield calls
+    incremental._cached_table.cache_clear()
+
+
+def test_scan_with_smul13_off_finds_planted_milksad_seed(k6_only):
+    d = _planted(1000)
+    pools = TargetPools.from_addresses([d.p2pkh_compressed])
+    res = scan_range(990, 1053, pools, batch=32, device="cpu")
+    assert [(h.seed, h.address_type) for h in res.hits] == [(1000, "p2pkh_compressed")]
+    assert k6_only == [32, 32]
+
+
+def test_direct_be_with_smul13_off_takes_k6_on_unsafe_superbatches(k6_only):
+    """[1, 1024] at batch 256: the superbatches from 1 and 257 start below
+    batch + 2 and take K6; the table of the sequential ones (from 513 and
+    769, where key 700 lies) is built with K6 too."""
+    from vuke_tpu_torch.derive import KeyDeriver
+
+    addr = KeyDeriver().derive((700).to_bytes(32, "big")).p2pkh_compressed
+    res = scan_range(1, 1024, TargetPools.from_addresses([addr]), transform="direct:be",
+                     batch=256, device="cpu")
+    assert [(h.seed, h.address) for h in res.hits] == [(700, addr)]
+    assert k6_only == [256, 256, 256]
+
+
 def test_cli_scan_prints_the_hit(tmp_path, capsys):
     d = _planted(42)
     path = tmp_path / "targets.txt"
@@ -100,6 +146,7 @@ import vuke_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vuke_tpu_torch.__path__, 'vuke_tpu_torch.')
          if m.name != 'vuke_tpu_torch.__main__']   # runs the command line
 assert len(names) >= 20, names
+assert {'vuke_tpu_torch.ecc.smul_w8', 'vuke_tpu_torch.ecc.pubkey'} <= set(names), names
 for name in names + ['chip_smoke']:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

@@ -7,6 +7,9 @@ CPU) -> ``odd_encode_rows`` + the ``_madd13`` window chain (numpy) ->
 ``_rows13_to16`` -> affine by ``_mul_t``/``_normalize16`` with host bignum
 inverses -> ``tiled._limbs_to_words_t`` -> ``_hash160_kernel`` (numpy) ->
 ``byteswap32`` fragments.  h160c, h160u and both fragments must be equal.
+With ``smul13=False`` the scalar multiplication is K6's instead: the
+``_smul_kernel`` window loop over byte digits
+(``test_torch_smul_w8.jax_k6_chain``).
 """
 
 import jax.numpy as jnp
@@ -23,6 +26,8 @@ from vuke_tpu.ecc import ref
 from vuke_tpu.ecc import tiled as jtiled
 from vuke_tpu_torch.ecc import tiled
 
+from test_torch_smul_w8 import jax_k6_chain
+
 N = 2048
 P = ref.P
 
@@ -33,15 +38,8 @@ def _seeds():
     return s
 
 
-def _jax_derive(seeds, monkeypatch):
-    kw = np.zeros((8, N // 1024, 8, 128), dtype=np.uint32)
-    with monkeypatch.context() as m:
-        m.setattr(pk, "jnp", np)
-        pk._mt_kernel(seeds.reshape(N // 1024, 8, 128), kw)
-    norm = np.asarray(jtiled._normalize_words_t(jnp.asarray(kw.reshape(8, N))))
-    for mod in (m13, ps, pinv, pk, jtiled):
-        monkeypatch.setattr(mod, "jnp", np)
-
+def _jax_k3_chain(norm):
+    """The odd-digit ``_madd13`` window chain -> 16-bit X, Y, ZZ, ZZZ rows."""
     tab = m13._table13_f32(10, "odd")
     digs = m13.odd_encode_rows([norm[i] for i in range(8)], 10)
 
@@ -57,7 +55,19 @@ def _jax_derive(seeds, monkeypatch):
     ZZ, ZZZ = list(one), list(one)
     for win in range(1, 26):
         X, Y, ZZ, ZZZ = m13._madd13(X, Y, ZZ, ZZZ, *lookup(win))
-    X, Y, ZZ, ZZZ = (m13._rows13_to16(a) for a in (X, Y, ZZ, ZZZ))
+    return tuple(m13._rows13_to16(a) for a in (X, Y, ZZ, ZZZ))
+
+
+def _jax_derive(seeds, monkeypatch, smul13=True):
+    kw = np.zeros((8, N // 1024, 8, 128), dtype=np.uint32)
+    with monkeypatch.context() as m:
+        m.setattr(pk, "jnp", np)
+        pk._mt_kernel(seeds.reshape(N // 1024, 8, 128), kw)
+    norm = np.asarray(jtiled._normalize_words_t(jnp.asarray(kw.reshape(8, N))))
+    for mod in (m13, ps, pinv, pk, jtiled):
+        monkeypatch.setattr(mod, "jnp", np)
+
+    X, Y, ZZ, ZZZ = (_jax_k3_chain if smul13 else jax_k6_chain)(norm)
 
     def val(rows, j):
         return sum(int(r[j]) << (16 * i) for i, r in enumerate(rows))
@@ -88,16 +98,25 @@ def _np(t):
     return t.to(torch.int64).numpy()
 
 
-@pytest.fixture(scope="module")
-def port_and_jax():
+def _port_and_jax(smul13):
     seeds = _seeds()
     mp = pytest.MonkeyPatch()
     try:
-        want = _jax_derive(seeds, mp)
+        want = _jax_derive(seeds, mp, smul13)
     finally:
         mp.undo()
-    got = tiled.derive_hash160s_tiled(torch.from_numpy(seeds))
+    got = tiled.derive_hash160s_tiled(torch.from_numpy(seeds), smul13=smul13)
     return seeds, got, want
+
+
+@pytest.fixture(scope="module")
+def port_and_jax():
+    return _port_and_jax(True)
+
+
+@pytest.fixture(scope="module")
+def port_and_jax_k6():
+    return _port_and_jax(False)
 
 
 @pytest.mark.parametrize("key", ["h160c", "h160u"])
@@ -112,6 +131,16 @@ def test_fragments_match_jax(port_and_jax, key):
     _, got, want = port_and_jax
     for g, w in zip(got[key], want[key]):
         assert g.shape == (N,)
+        assert np.array_equal(_np(g), w)
+
+
+@pytest.mark.parametrize("key", ["h160c", "h160u", "frag_c", "frag_u"])
+def test_k6_slice_matches_jax(port_and_jax_k6, key):
+    """The slice with ``smul13=False`` (K6's plain version) against the JAX
+    pieces composed with the K6 window loop."""
+    _, got, want = port_and_jax_k6
+    pairs = zip(got[key], want[key]) if key.startswith("frag") else [(got[key], want[key])]
+    for g, w in pairs:
         assert np.array_equal(_np(g), w)
 
 
@@ -138,3 +167,13 @@ def test_plain_flag_runs_the_same_stages():
     a = tiled.derive_hash160s_tiled(seeds)
     b = tiled.derive_hash160s_tiled(seeds, plain=True)
     assert np.array_equal(_np(a["h160u"]), _np(b["h160u"]))
+
+
+@pytest.mark.parametrize("value", [None, "0", "false", "no", "1", "yes", ""])
+def test_use_smul13_reads_the_switch_like_jax(monkeypatch, value):
+    if value is None:
+        monkeypatch.delenv("VUKE_TPU_SMUL13", raising=False)
+    else:
+        monkeypatch.setenv("VUKE_TPU_SMUL13", value)
+    assert tiled.use_smul13() == jtiled.use_smul13()
+    assert tiled.use_smul13(True) and not tiled.use_smul13(False)

@@ -1,8 +1,10 @@
 """Rate measurement on the card: the two derive paths of a scan.
 
 - ``bench_derive``, port of ``vuke_tpu.benchmark.bench_derive``: milksad
-  seeds -> K1 -> normalize -> K3 -> K4 -> K2 -> fragments, under the JAX
-  package's metric name ``seed_to_hash160_derivations_per_sec``;
+  seeds -> K1 -> normalize -> K3 (or K6 with ``smul13`` off, as
+  ``VUKE_TPU_SMUL13=0`` selects) -> K4 -> K2 -> fragments, under the JAX
+  package's metric name ``seed_to_hash160_derivations_per_sec`` for either
+  kernel; the result's ``smul`` names the kernel;
 - ``bench_sequential``, port of ``vuke_tpu.benchmark.bench_sequential``:
   contiguous keys -> K5 -> K4 -> K2 -> fragments from a cached offset
   table, the base point stepped on the host inside the timed window,
@@ -21,7 +23,7 @@ import torch
 
 from ._device import require_cuda, u32
 from .ecc.incremental import BaseStepper, build_offset_table, offset_table, sequential_core
-from .ecc.tiled import derive_hash160s_tiled
+from .ecc.tiled import derive_hash160s_tiled, use_smul13
 
 METRIC = "seed_to_hash160_derivations_per_sec"
 SEQ_METRIC = "sequential_scan_derivations_per_sec"
@@ -44,7 +46,7 @@ def time_cuda(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _derive_step(dev: torch.device, batch: int):
+def _derive_step(dev: torch.device, batch: int, smul13: bool):
     """A callable deriving a fresh batch of ``batch`` seeds per call."""
     offsets = torch.arange(batch, dtype=torch.int64, device=dev)
     state = {"i": 0}
@@ -52,7 +54,7 @@ def _derive_step(dev: torch.device, batch: int):
     def step():
         state["i"] += 1
         seeds = u32(offsets + state["i"] * batch)
-        return derive_hash160s_tiled(seeds)["frag_c"][0]
+        return derive_hash160s_tiled(seeds, smul13=smul13)["frag_c"][0]
 
     return step
 
@@ -89,10 +91,16 @@ def _rate(metric: str, step, batch: int, iters: int, dev) -> dict:
     }
 
 
-def bench_derive(batch: int = 1 << 19, iters: int = 20) -> dict:
-    """Full milksad seed -> hash160 derive rate at ``batch`` seeds per call."""
+def bench_derive(batch: int = 1 << 19, iters: int = 20,
+                 smul13: bool | None = None) -> dict:
+    """Full milksad seed -> hash160 derive rate at ``batch`` seeds per call,
+    through K3 or K6 (``smul13``; None reads the environment,
+    ``ecc/tiled.use_smul13``)."""
     dev = require_cuda()
-    return _rate(METRIC, _derive_step(dev, batch), batch, iters, dev)
+    smul13 = use_smul13(smul13)
+    out = _rate(METRIC, _derive_step(dev, batch, smul13), batch, iters, dev)
+    out["smul"] = "smul" if smul13 else "smul_w8"
+    return out
 
 
 def bench_sequential(batch: int = 1 << 19, iters: int = 20) -> dict:
@@ -146,10 +154,15 @@ def _profile(step, dev, batch: int, iters: int) -> dict:
     }
 
 
-def profile_derive(batch: int = 1 << 19, iters: int = 10) -> dict:
-    """``_profile`` of the milksad derive step."""
+def profile_derive(batch: int = 1 << 19, iters: int = 10,
+                   smul13: bool | None = None) -> dict:
+    """``_profile`` of the milksad derive step (``smul13`` as in
+    ``bench_derive``)."""
     dev = require_cuda()
-    return _profile(_derive_step(dev, batch), dev, batch, iters)
+    smul13 = use_smul13(smul13)
+    out = _profile(_derive_step(dev, batch, smul13), dev, batch, iters)
+    out["smul"] = "smul" if smul13 else "smul_w8"
+    return out
 
 
 def profile_sequential(batch: int = 1 << 19, iters: int = 10) -> dict:

@@ -5,7 +5,9 @@
     python -m vuke_tpu_torch bench [--batch N] [--sequential] [--profile]
 
 Only the milksad and direct:be transforms over a range source are ported;
-anything else stops with a "not ported yet" error.
+anything else stops with a "not ported yet" error.  ``VUKE_TPU_SMUL13=0``
+in the environment switches both commands' scalar multiplication from K3
+to K6 (``ecc/tiled.use_smul13``), as it does for the JAX package.
 """
 
 from __future__ import annotations

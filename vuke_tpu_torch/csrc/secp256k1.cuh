@@ -190,6 +190,16 @@ __device__ __forceinline__ void madd(Fe& X, Fe& Y, Fe& ZZ, Fe& ZZZ,
     fe_mul(ZZZ, ZZZ, HHH);
 }
 
+// One 64-byte table row of an affine point, x then y as 8 LE limbs each:
+// four 16-byte read-only loads (the scalar multiplications' window tables).
+__device__ __forceinline__ void load_xy(const uint4* __restrict__ row, Fe& x, Fe& y) {
+    uint4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+    x.v[0] = q0.x; x.v[1] = q0.y; x.v[2] = q0.z; x.v[3] = q0.w;
+    x.v[4] = q1.x; x.v[5] = q1.y; x.v[6] = q1.z; x.v[7] = q1.w;
+    y.v[0] = q2.x; y.v[1] = q2.y; y.v[2] = q2.z; y.v[3] = q2.w;
+    y.v[4] = q3.x; y.v[5] = q3.y; y.v[6] = q3.z; y.v[7] = q3.w;
+}
+
 // Word-major (8, n) tensors: limb / word j of lane i at p[j * n + i].
 __device__ __forceinline__ void fe_load_le(Fe& r, const uint32_t* __restrict__ p,
                                            long long n, long long i) {

@@ -51,12 +51,7 @@ __device__ __forceinline__ uint32_t n_limb(int j) {
 
 __device__ __forceinline__ void lookup(const uint4* __restrict__ table, int w,
                                        uint32_t idx, bool negate, Fe& x, Fe& y) {
-    const uint4* e = table + ((size_t)w * kTsize + idx) * 4;
-    uint4 q0 = __ldg(e), q1 = __ldg(e + 1), q2 = __ldg(e + 2), q3 = __ldg(e + 3);
-    x.v[0] = q0.x; x.v[1] = q0.y; x.v[2] = q0.z; x.v[3] = q0.w;
-    x.v[4] = q1.x; x.v[5] = q1.y; x.v[6] = q1.z; x.v[7] = q1.w;
-    y.v[0] = q2.x; y.v[1] = q2.y; y.v[2] = q2.z; y.v[3] = q2.w;
-    y.v[4] = q3.x; y.v[5] = q3.y; y.v[6] = q3.z; y.v[7] = q3.w;
+    load_xy(table + ((size_t)w * kTsize + idx) * 4, x, y);
     if (negate) fe_neg(y, y);
 }
 

@@ -5,12 +5,13 @@ start, start + 1, ... the key of lane i is (start - 1) + (i + 1): with the
 base B = (start - 1) * G, one host point per superbatch, and the offset
 O_i = (i + 1) * G from a table built once per batch size, each key costs
 ONE affine + affine addition (K5, 5M + 2S) before the shared batch
-inversion (K4) and hash160 (K2), where the scalar multiplication (K3) costs
-~250 field products.
+inversion (K4) and hash160 (K2), where the scalar multiplication (K3, or
+K6 with ``smul13`` off) costs ~250-310 field products.
 
 The addition breaks only where B = +-O_i or B is the point at infinity;
 seeds are u64 (far below n), so ``sequential_safe`` reduces to
-start >= batch + 2.  Unsafe superbatches take the K3 path.
+start >= batch + 2.  Unsafe superbatches take the scalar-multiplication
+path.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from .._device import MASK32, check_same_device, check_words, i64, u32
 from ..cores import hash160
 from ..kernels import PTR, SIZE, Kernel
 from . import field as F
-from . import inv, ref, smul
-from .tiled import fragments
+from . import inv, ref
+from .tiled import affine_points, fragments, use_smul13
 
 KERNEL = Kernel(
     "seq_madd", "vk_seq_madd", [PTR, PTR, PTR, PTR, PTR, PTR, PTR, SIZE],
@@ -62,27 +63,33 @@ class BaseStepper:
         return pt
 
 
-def build_offset_table(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def build_offset_table(n: int, device, smul13: bool | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Affine (i + 1) * G for i < n as two (8, n) uint32 LE-limb tensors,
-    computed with the port's own K3 + K4 (their plain versions on the CPU)."""
+    computed with the port's own K3 (or K6 with ``smul13`` off; None reads
+    the environment, ``tiled.use_smul13``) + K4, their plain versions on the
+    CPU."""
     if not 0 < n < 1 << 32:
         raise ValueError(f"offset table size {n} is out of range")
     scalars = torch.zeros((8, n), dtype=torch.int64, device=device)
     scalars[7] = torch.arange(1, n + 1, dtype=torch.int64, device=device)
-    x, y = inv.affine(*smul.scalar_mul(u32(scalars)))
-    # affine() gives BE words; the table keeps LE limbs, as K5 reads them
+    x, y = affine_points(u32(scalars), smul13=smul13)
+    # affine_points gives BE words; the table keeps LE limbs, as K5 reads them
     return tuple(u32(i64(a).flip(0)).contiguous() for a in (x, y))
 
 
 @functools.lru_cache(maxsize=4)
-def _cached_table(n: int, device: str):
-    return build_offset_table(n, device)
+def _cached_table(n: int, device: str, smul13: bool):
+    return build_offset_table(n, device, smul13)
 
 
-def offset_table(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``build_offset_table`` once per (n, device), kept for reuse: 64 bytes
-    a lane, 32 MiB at n = 2^19."""
-    return _cached_table(n, str(torch.device(device)))
+def offset_table(n: int, device, smul13: bool | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``build_offset_table`` once per (n, device, kernel), kept for reuse:
+    64 bytes a lane, 32 MiB at n = 2^19.  The key holds the resolved
+    ``smul13``, so a run's launch counts show the kernel that built its
+    table."""
+    return _cached_table(n, str(torch.device(device)), use_smul13(smul13))
 
 
 def _check_base(bx: int, by: int):

@@ -34,7 +34,7 @@ KERNEL = Kernel(
     replaces="vuke_tpu/ecc/pallas_smul13.py:500 _smul13_kernel")
 
 
-def _affine_add(p1, p2):
+def affine_add(p1, p2):
     """Affine sum of two distinct, non-opposite points (table building)."""
     (x1, y1), (x2, y2) = p1, p2
     if x1 == x2:
@@ -55,15 +55,15 @@ def window_table() -> np.ndarray:
     base = (ref.GX, ref.GY)
     for w in range(WINDOWS):
         acc = base
-        step = _affine_add(base, base)
+        step = affine_add(base, base)
         for j in range(TSIZE):
             x, y = acc
             out[w, j, :8] = (x >> shifts) & MASK32
             out[w, j, 8:] = (y >> shifts) & MASK32
             if j + 1 < TSIZE:
-                acc = _affine_add(acc, step)
+                acc = affine_add(acc, step)
         for _ in range(WBITS):
-            base = _affine_add(base, base)
+            base = affine_add(base, base)
     return out
 
 
@@ -107,7 +107,7 @@ def odd_encode(words: torch.Tensor) -> torch.Tensor:
     return torch.stack(digs, dim=0).to(torch.uint32)
 
 
-def _madd(X, Y, ZZ, ZZZ, x2, y2):
+def madd(X, Y, ZZ, ZZZ, x2, y2):
     """(X, Y, ZZ, ZZZ) + affine (x2, y2): 8M + 2S, the formulas of
     ``pallas_smul13._madd13``."""
     H = F.sub(F.mul(x2, ZZ), X)
@@ -140,7 +140,7 @@ def scalar_mul_plain(words: torch.Tensor, table: torch.Tensor):
     ZZZ = ZZ.clone()
     for w in range(1, WINDOWS):
         x2, y2 = _lookup(table, w, digits[w])
-        X, Y, ZZ, ZZZ = _madd(X, Y, ZZ, ZZZ, x2, y2)
+        X, Y, ZZ, ZZZ = madd(X, Y, ZZ, ZZZ, x2, y2)
     return tuple(F.to_u32_le(F.exact(a)) for a in (X, Y, ZZ, ZZZ))
 
 

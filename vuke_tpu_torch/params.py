@@ -2,13 +2,15 @@
 
 - ``table_from_jax``: ``pallas_smul13._table13_f32(10, "odd")`` (26, 512,
   40) float32 13-bit limbs -> the port's (26, 512, 16) uint32 table.
+- ``table_w8_from_jax``: ``pallas_smul._table_f32()`` (32, 256, 32)
+  float32 16-bit limbs -> the port's (32, 256, 16) uint32 byte-window table.
 - ``pools_from_jax``: the numpy form of ``DeviceTargetSet.device_args()``
   -> the port's ``TargetPools``.
 - ``offset_table_from_jax``: ``incremental.offset_table(n)``'s two
   (16, nb, 8, 128) 16-bit-row stacks -> the port's two (8, n) uint32
   LE-limb tensors, in the same lane order.
 
-Neither function imports jax: callers hand over numpy arrays.
+No function here imports jax: callers hand over numpy arrays.
 """
 
 from __future__ import annotations
@@ -43,6 +45,20 @@ def table_from_jax(t13: np.ndarray) -> np.ndarray:
     x = _limbs13_to32(t13[..., :_L13])
     y = _limbs13_to32(t13[..., _L13:])
     return np.concatenate([x, y], axis=-1)
+
+
+def table_w8_from_jax(t16: np.ndarray) -> np.ndarray:
+    """``pallas_smul._table_f32()``: (32, 256, 32) float32 (x limbs 0..15,
+    y limbs 16..31, 16 bits each, LE) -> (32, 256, 16) uint32 (x then y, 8
+    LE 32-bit limbs each), the port's ``smul_w8.window_table()`` layout."""
+    t16 = np.asarray(t16)
+    if t16.shape[-1] != 32:
+        raise ValueError(f"expected (..., 32) limbs, got {t16.shape}")
+    limbs = t16.astype(np.int64)
+    if (limbs != t16).any() or (limbs >> 16).any() or (limbs < 0).any():
+        raise ValueError("table limbs are not 16-bit integers")
+    limbs = limbs.astype(np.uint32)
+    return limbs[..., 0::2] | (limbs[..., 1::2] << np.uint32(16))
 
 
 def pools_from_jax(comp_hi, comp_lo, uncomp_hi, uncomp_lo) -> TargetPools:

@@ -5,7 +5,8 @@ ported numeric transforms (``transforms.py``).  Each superbatch takes one
 of two device paths, as ``pipeline.ScanProgram`` chooses in the JAX
 package:
 
-- keygen -> the K3 derive of ``ecc/tiled.py``;
+- keygen -> the derive of ``ecc/tiled.py``, through K3 or, with
+  ``smul13`` off (``VUKE_TPU_SMUL13=0``), K6;
 - ``SequentialScan``: for a transform whose key is the seed, one point
   addition per key from a cached offset table (``ecc/incremental.py``),
   whenever ``sequential_safe`` allows it.
@@ -31,7 +32,7 @@ from . import transforms
 from ._device import MASK32, u32
 from .derive import DerivedKey, KeyDeriver
 from .ecc.incremental import BaseStepper, offset_table, sequential_core, sequential_safe
-from .ecc.tiled import derive_tiled_from_words
+from .ecc.tiled import derive_tiled_from_words, use_smul13
 from .matcher import TargetPools
 
 DEFAULT_BATCH = 1 << 19
@@ -71,13 +72,15 @@ def match(pools: TargetPools, d: dict, valid: torch.Tensor) -> dict:
 
 class SequentialScan:
     """Contiguous keys, one affine point addition each: the offset table
-    (built here, once per batch size and device), an int64 lane index and
-    the host base point of each superbatch."""
+    (built here with K3 or K6 as ``smul13`` says, once per batch size,
+    device and kernel), an int64 lane index and the host base point of each
+    superbatch."""
 
-    def __init__(self, pools: TargetPools, batch: int, device):
+    def __init__(self, pools: TargetPools, batch: int, device,
+                 smul13: bool | None = None):
         self.pools = pools
         self.batch = batch
-        self.offx, self.offy = offset_table(batch, device)
+        self.offx, self.offy = offset_table(batch, device, smul13)
         self.offsets = torch.arange(batch, dtype=torch.int64, device=device)
         self.stepper = BaseStepper(batch)
 
@@ -95,14 +98,17 @@ class ScanProgram:
     A transform with a ``sequential_slot`` takes ``SequentialScan`` for
     every superbatch that ``sequential_safe`` allows (its table is built on
     the first such superbatch); every other superbatch takes keygen -> the
-    K3 derive."""
+    derive.  ``smul13`` picks K3 (True) or K6 (False) for the derive and the
+    table, once for the whole run; None reads the environment
+    (``ecc/tiled.use_smul13``)."""
 
     def __init__(self, transform: transforms.NumericTransform, pools: TargetPools,
-                 batch: int, device):
+                 batch: int, device, smul13: bool | None = None):
         self.transform = transform
         self.pools = pools
         self.batch = batch
         self.device = torch.device(device)
+        self.smul13 = use_smul13(smul13)
         self.offsets = torch.arange(batch, dtype=torch.int64, device=self.device)
         self._seq: Optional[SequentialScan] = None
 
@@ -112,11 +118,12 @@ class ScanProgram:
         if (self.transform.sequential_slot is not None
                 and sequential_safe(start, self.batch)):
             if self._seq is None:
-                self._seq = SequentialScan(self.pools, self.batch, self.device)
+                self._seq = SequentialScan(self.pools, self.batch, self.device,
+                                           self.smul13)
             return self._seq.run(start, limit)
         hi, lo = seed_lattice(start, self.offsets)
         words, valid = self.transform.keygen(hi, lo)
-        return match(self.pools, derive_tiled_from_words(words),
+        return match(self.pools, derive_tiled_from_words(words, smul13=self.smul13),
                      valid & (self.offsets < limit))
 
 
@@ -154,19 +161,20 @@ def _confirm(seed: int, transform: transforms.NumericTransform, targets: frozens
 
 
 def scan_range(start: int, end: int, pools: TargetPools, *, transform="milksad",
-               batch: int = DEFAULT_BATCH, device, on_hit=None) -> ScanResult:
+               batch: int = DEFAULT_BATCH, device, on_hit=None,
+               smul13: bool | None = None) -> ScanResult:
     """``transform`` (a name or a ``NumericTransform``) over the inclusive
     u64 seed range [start, end].
 
     Every superbatch runs at full width; lanes past ``end`` are masked out,
     as are seeds the transform yields no key for (milksad above 2^32 - 1),
     which count as inputs only.  ``on_hit`` is called with each confirmed
-    ``Hit`` as it is found."""
+    ``Hit`` as it is found.  ``smul13`` as in ``ScanProgram``."""
     if batch % 32:
         raise ValueError(f"batch {batch} is not a multiple of 32")
     if isinstance(transform, str):
         transform = transforms.get(transform)
-    prog = ScanProgram(transform, pools, batch, device)
+    prog = ScanProgram(transform, pools, batch, device, smul13)
     deriver = KeyDeriver()
     result = ScanResult()
     pos = start
