@@ -10,10 +10,14 @@ multiplication (``VUKE_TPU_SMUL13=0``: K6 in place of K3), and fails
 
 1. environment: torch / CUDA / nvcc versions, capability (9, 0), the
    card's name, power limit and maximum SM clock;
-2. build: one nvcc per csrc/*.cu, all at once (time, registers, spills);
-3. each kernel against its plain PyTorch version on the card at N = 16384,
-   lane-exact, on adversarial inputs, and 64 lanes against host oracles
-   (numpy's MT19937, the port's bignum secp256k1 and encodings, hashlib);
+2. build: one nvcc per csrc/*.cu, all at once (time, and each kernel's
+   registers, stack and spill bytes from ``-Xptxas -v``);
+3. the field library's self-test (``csrc/fe_selftest.cu``: fe_mul, fe_sqr,
+   fe_inv, fe_canon, fe_add, fe_sub) against Python integers on every pair
+   of adversarial operands and 16384 random pairs; then each kernel against
+   its plain PyTorch version on the card at N = 16384, lane-exact, on
+   adversarial inputs, and 64 lanes against host oracles (numpy's MT19937,
+   the port's bignum secp256k1 and encodings, hashlib);
 4. the milksad derive at batch 2^19 through the kernels against the plain
    path on the card (lane-exact) and 256 sampled lanes against the host;
    4b. the sequential derive at batch 2^19 across 2^63 against the K3 path
@@ -52,7 +56,6 @@ import hashlib
 import io
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -80,22 +83,27 @@ MILKSAD_PATH = ("mt19937", "smul", "inv_affine", "hash160")
 # the HBM rate and its 32-bit integer operations over the SM's rate for
 # them.  Per lane: (bytes, each input read once and each output written
 # once; operations counted from the source, fewest the function needs).
+# A 32x32 -> 64-bit product is two 32-bit multiply results (low and high
+# word), so a field product (8 x 8 limbs) is 128 of them and a squaring
+# (28 cross products + 8 squares) 72.
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 INT_OPS_PER_SM_CLOCK = 64            # 32-bit IMAD or SHF per SM per clock (sm_90)
+MUL_OPS, SQR_OPS = 2 * 64, 2 * 36
+MADD_OPS = 8 * MUL_OPS + 2 * SQR_OPS    # mixed addition: 8M + 2S
 WORK_PER_LANE = {
     # 4 B seed in, 32 B key out; 404 multiplies of the init_genrand chain
     "mt19937": (36, 404),
-    # 32 B scalar in, 4 x 32 B out; 25 additions x 10 field products x 64
-    # 32x32-bit multiplies (the 0.85 MB table is added once below)
-    "smul": (160, 25 * 10 * 64),
-    # 32 B scalar in, 4 x 32 B out; 31 additions x 10 field products x 64
-    # multiplies (window 0 only seeds; the 512 KiB table is added once below)
-    "smul_w8": (160, 31 * 10 * 64),
-    # 2 x 32 B offset in, 4 x 32 B out; 5M + 2S = 7 field products x 64
-    "seq_madd": (192, 7 * 64),
-    # 4 x 32 B in, 2 x 32 B out; Montgomery batch inversion, 8 products x 64
-    # per lane (the one shared inversion amortized away)
-    "inv_affine": (192, 8 * 64),
+    # 32 B scalar in, 4 x 32 B out; 25 mixed additions (the 0.85 MB table
+    # is added once below)
+    "smul": (160, 25 * MADD_OPS),
+    # 32 B scalar in, 4 x 32 B out; 31 mixed additions (window 0 only seeds;
+    # the 512 KiB table is added once below)
+    "smul_w8": (160, 31 * MADD_OPS),
+    # 2 x 32 B offset in, 4 x 32 B out; 5M + 2S
+    "seq_madd": (192, 5 * MUL_OPS + 2 * SQR_OPS),
+    # 4 x 32 B in, 2 x 32 B out; Montgomery batch inversion, 8 products per
+    # lane (the one shared inversion amortized away)
+    "inv_affine": (192, 8 * MUL_OPS),
     # 2 x 32 B in, 2 x 20 B out; rotates: 3 SHA-256 blocks x 64 rounds x 6
     # plus 2 RIPEMD-160 blocks x 160 steps x 2
     "hash160": (104, 3 * 64 * 6 + 2 * 160 * 2),
@@ -172,6 +180,56 @@ def digest_le(words5: torch.Tensor, j: int) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# operands of the field self-test (phase 3, tests/test_torch_cuda.py,
+# tests/test_torch_inv.py, tests/test_torch_field_ptx.py)
+# ---------------------------------------------------------------------------
+
+# The edges of p and of the weak range, single full limbs; every pair of
+# them includes products whose top limb is full (the first fold's carry
+# c >= 2^32) and sums that fold twice.
+FIELD_EDGE = ((0, 1, 2, P - 2, P - 1, P, P + 1, (1 << 256) - 1, (1 << 256) - (1 << 32) - 978,
+               1 << 255, (1 << 256) - (1 << 32), (1 << 32) + 977)
+              + tuple(0xFFFFFFFF << (32 * i) for i in range(8)))
+
+
+def field_operands(n_random: int, seed: int) -> tuple[list[int], list[int]]:
+    """(a, b) Python ints: every pair of ``FIELD_EDGE`` values, then
+    ``n_random`` random pairs below 2^256."""
+    rng = np.random.default_rng(seed)
+    a = [x for x in FIELD_EDGE for _ in FIELD_EDGE]
+    b = [y for _ in FIELD_EDGE for y in FIELD_EDGE]
+    a += [int.from_bytes(rng.bytes(32), "little") for _ in range(n_random)]
+    b += [int.from_bytes(rng.bytes(32), "little") for _ in range(n_random)]
+    return a, b
+
+
+def limbs_le(vals) -> torch.Tensor:
+    """Python ints below 2^256 -> (8, N) uint32 LE limbs on the CPU."""
+    return torch.from_numpy(np.array([[(v >> (32 * j)) & 0xFFFFFFFF for v in vals]
+                                      for j in range(8)], dtype=np.uint32))
+
+
+def field_mismatches(a: list[int], b: list[int], outs: dict) -> list[str]:
+    """The lanes where ``field.selftest``'s results are not what Python
+    integers give: each below 2^256 and congruent mod p to a*b, a^2,
+    a^(p-2), a+b, a-b, and ``canon`` exactly a mod p."""
+    bad = []
+    got = {}
+    for op, limbs in outs.items():
+        arr = as_i64(limbs.cpu()).numpy().astype(object)
+        got[op] = list(sum(arr[j] << (32 * j) for j in range(8)))
+    for j, (x, y) in enumerate(zip(a, b)):
+        want = {"mul": x * y % P, "sqr": x * x % P, "inv": pow(x, P - 2, P),
+                "add": (x + y) % P, "sub": (x - y) % P}
+        for op, w in want.items():
+            if got[op][j] % P != w:
+                bad.append(f"{op} lane {j}: a={x:#x} b={y:#x} got {got[op][j]:#x}")
+        if got["canon"][j] != x % P:
+            bad.append(f"canon lane {j}: a={x:#x} got {got['canon'][j]:#x}")
+    return bad
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -201,15 +259,29 @@ def phase_environment():
 def phase_build(card: str):
     lib = kernels.library()
     parts = []
-    for chunk in lib.log.split("Compiling entry function")[1:]:
-        name = next((k for k in KERNELS if f"{k}_kernel" in chunk), "?")
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads.*?Used (\d+) registers", chunk, flags=re.S)
-        if m:
-            stack, st, ld, regs = m.groups()
-            parts.append(f"{name}: {regs} regs, stack {stack} B, spills {st}/{ld} B")
+    for name, regs, stack, spill in kernels.ptxas_usage(lib.log):
+        parts.append(f"{name}: {regs} regs, stack {stack} B, spills {spill} B")
     summary = ", ".join(parts)
     say(f"[2 build] nvcc (one per source, in parallel) built {lib.path.name} in {lib.build_seconds:.1f} s [{card}]; {summary}")
+
+
+def phase_field(dev, rng):
+    """The field library's primitives on the card (``vk_fe_selftest``)
+    against Python integers: every pair of ``FIELD_EDGE`` operands and
+    N_KERNEL random pairs."""
+    a, b = field_operands(N_KERNEL, int(rng.integers(1 << 31)))
+    before = F.SELFTEST_KERNEL.launches
+    outs = F.selftest(limbs_le(a).to(dev), limbs_le(b).to(dev))
+    torch.cuda.synchronize()
+    if F.SELFTEST_KERNEL.launches != before + 1:
+        raise AssertionError("the field self-test did not launch its kernel")
+    bad = field_mismatches(a, b, outs)
+    if bad:
+        raise AssertionError(f"field self-test: {len(bad)} results differ: {bad[:8]}")
+    say(f"[3 field] fe_selftest on {len(a)} lanes ({len(FIELD_EDGE)}^2 adversarial pairs: "
+        f"0, 1, 2, p-2, p-1, p, p+1, 2^256-1, 2^256-2^32-978, 2^255, 2^32-1 in each limb, ...; "
+        f"{N_KERNEL} random): fe_mul, fe_sqr, fe_inv, fe_add, fe_sub == Python ints mod p, "
+        f"below 2^256; fe_canon == a mod p exactly")
 
 
 def phase_kernels(dev, rng) -> dict:
@@ -720,6 +792,7 @@ def main() -> int:
     dev, card, int_ops_per_s = phase_environment()
     rng = np.random.default_rng(20261016)
     phase_build(card)
+    phase_field(dev, rng)
     errs = phase_kernels(dev, rng)
     phase_derive(dev, rng)
     phase_seq_derive(dev, rng)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vuke_tpu_torch.cores import hash160, mt19937
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
@@ -82,6 +83,17 @@ def test_smul_w8_kernel_matches_plain_mod_p(dev):
     want = smul_w8.scalar_mul_plain(norm, smul_w8.table_on(str(dev)))
     for g, w in zip(got, want):
         assert _eq(F.canonical(F.from_u32_le(g)), F.canonical(F.from_u32_le(w)))
+
+
+def test_field_selftest_matches_bignum(dev):
+    """The field library's carry chains (fe_mul, fe_sqr, fe_inv, fe_canon,
+    fe_add, fe_sub) on every pair of adversarial operands and 16384 random
+    pairs, against Python integers."""
+    a, b = chip_smoke.field_operands(16384, seed=9)
+    before = F.SELFTEST_KERNEL.launches
+    outs = F.selftest(chip_smoke.limbs_le(a).to(dev), chip_smoke.limbs_le(b).to(dev))
+    assert F.SELFTEST_KERNEL.launches == before + 1
+    assert chip_smoke.field_mismatches(a, b, outs) == []
 
 
 def test_inv_affine_kernel_matches_plain(dev):

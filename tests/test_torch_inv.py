@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import vuke_tpu.ecc.pallas_inv as pinv
 import vuke_tpu.ecc.pallas_smul as ps
 from vuke_tpu.ecc import ref
@@ -109,7 +110,7 @@ def _points(n, seed):
     return [list(c) for c in zip(*lanes)]
 
 
-@pytest.mark.parametrize("n,chunk", [(256, 16), (256, 1), (512, 32)])
+@pytest.mark.parametrize("n,chunk", [(256, 16), (256, 1), (512, 32), (256, 8), (256, 4)])
 def test_affine_plain_matches_jax_rows(monkeypatch, n, chunk):
     monkeypatch.setattr(ps, "jnp", np)
     monkeypatch.setattr(pinv, "jnp", np)
@@ -122,6 +123,19 @@ def test_affine_plain_matches_jax_rows(monkeypatch, n, chunk):
 
 
 def test_affine_wrapper_requires_chunk_multiple():
-    z = torch.zeros((8, 24), dtype=torch.uint32)
+    n = inv.CHUNK + inv.CHUNK // 2
+    assert n % inv.CHUNK
+    z = torch.zeros((8, n), dtype=torch.uint32)
     with pytest.raises(ValueError):
         inv.affine(z, z, z, z)
+
+
+def test_field_selftest_plain_matches_bignum():
+    """``field.selftest`` on the CPU (its plain path) on the operands the
+    card's self-test takes: every pair of the adversarial values, and
+    random pairs."""
+    a, b = chip_smoke.field_operands(64, seed=3)
+    outs = F.selftest(chip_smoke.limbs_le(a), chip_smoke.limbs_le(b))
+    assert set(outs) == set(F.SELFTEST_OPS)
+    assert all(o.dtype == torch.uint32 and o.shape == (8, len(a)) for o in outs.values())
+    assert chip_smoke.field_mismatches(a, b, outs) == []

@@ -118,25 +118,44 @@ def bench_sequential(batch: int = 1 << 19, iters: int = 20) -> dict:
     return out
 
 
+SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize")
+
+
 def _profile(step, dev, batch: int, iters: int) -> dict:
     """Where a call's time goes on the card: device time per kernel
     (``torch.profiler``, CUPTI) and the device's idle share of the host
     wall clock, per batch, over ``iters`` calls after a warm-up.  The
-    profiler's own overhead is inside the wall clock."""
+    profiler's own overhead is inside the wall clock.
+
+    Before the profiler starts, ``iters`` calls are timed on the host's
+    clock alone: ``host_issue_ms_per_batch`` is the host's time per call
+    and ``device_drain_ms`` the wait after the last one until the device
+    is done.  Where the calls return before their kernels end (the
+    profile's ``host_waits_per_batch`` is 0), a host that issues slower
+    than the device computes leaves a drain below one batch's device
+    time; a device that computes slower leaves the backlog to drain."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter() - t1) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t2 = time.perf_counter()
         for _ in range(iters):
             step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    per_kernel = {}
+        wall_ms = (time.perf_counter() - t2) * 1e3 / iters
+    per_kernel, waits = {}, -1          # -1: the synchronize that closes the loop
     for e in prof.key_averages():
+        if e.key in SYNC_CALLS:
+            waits += e.count
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -146,6 +165,9 @@ def _profile(step, dev, batch: int, iters: int) -> dict:
     busy = sum(per_kernel.values())
     return {
         "batch": batch,
+        "host_issue_ms_per_batch": (t1 - t0) * 1e3 / iters,
+        "device_drain_ms": drain_ms,
+        "host_waits_per_batch": waits / iters,
         "wall_ms_per_batch": wall_ms,
         "device_busy_ms_per_batch": busy,
         "device_idle_share": 1.0 - busy / wall_ms if busy else None,

@@ -11,8 +11,10 @@ limbs (a handful of tensor ops each), with the carry out of limb 15 folded
 back into limbs 0 and 2.  ``exact`` and ``canonical`` run the slower
 sequential carry and are used only at stage boundaries.
 
-Only the plain versions use this module; the CUDA kernels have their own
-field library in ``csrc/secp256k1.cuh`` (8 x 32-bit limbs).
+The plain versions use this module; the CUDA kernels have their own
+field library in ``csrc/secp256k1.cuh`` (8 x 32-bit limbs).  ``selftest``
+applies that library's primitives lane-wise on the card (test-only entry
+point ``vk_fe_selftest``), and these plain functions on the CPU.
 """
 
 from __future__ import annotations
@@ -21,10 +23,18 @@ import functools
 
 import torch
 
+from .._device import check_same_device, check_words
+from ..kernels import PTR, SIZE, Kernel
 from .ref import P
 
 M16 = 0xFFFF
 LIMBS = 16
+SELFTEST_OPS = ("mul", "sqr", "inv", "canon", "add", "sub")
+
+SELFTEST_KERNEL = Kernel(
+    "fe_selftest", "vk_fe_selftest", [PTR] * 8 + [SIZE],
+    source="vuke_tpu_torch/csrc/fe_selftest.cu",
+    replaces="none: a test of csrc/secp256k1.cuh, not a TPU kernel's counterpart")
 
 P_LIMBS = [(P >> (16 * i)) & M16 for i in range(LIMBS)]
 
@@ -180,3 +190,35 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     t = mul(sqr_k(t, 5), x1)
     t = mul(sqr_k(t, 3), x2)
     return mul(sqr_k(t, 2), x1)
+
+
+def selftest_plain(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Plain version of ``vk_fe_selftest``: (8, N) LE limbs a, b below
+    2^256 -> {op: (8, N) uint32 LE limbs} for a*b, a^2, a^(p-2), the
+    canonical a, a+b and a-b, each below 2^256 (canonical only for
+    ``canon``)."""
+    x, y = from_u32_le(a), from_u32_le(b)
+    out = {"mul": mul(x, y), "sqr": sqr(x), "inv": inv(x), "add": add(x, y), "sub": sub(x, y)}
+    res = {k: to_u32_le(exact(v)) for k, v in out.items()}
+    res["canon"] = to_u32_le(canonical(x))
+    return {k: res[k] for k in SELFTEST_OPS}
+
+
+def selftest(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The field library's fe_mul, fe_sqr, fe_inv, fe_canon, fe_add and
+    fe_sub lane-wise: (8, N) uint32 LE limbs a, b -> {op: (8, N) uint32}.
+
+    A CUDA tensor goes through ``csrc/fe_selftest.cu``; a CPU tensor through
+    ``selftest_plain``.  Results agree mod p (weak residues below 2^256;
+    ``canon`` exactly)."""
+    n = check_words(a, 8, "a")
+    if check_words(b, 8, "b") != n:
+        raise ValueError(f"b: batch {b.shape[1]} != {n}")
+    dev = check_same_device(a, b)
+    if dev.type == "cpu":
+        return selftest_plain(a, b)
+    outs = {k: torch.empty((8, n), dtype=torch.uint32, device=dev) for k in SELFTEST_OPS}
+    if n:
+        SELFTEST_KERNEL.launch(dev, a.data_ptr(), b.data_ptr(),
+                               *[outs[k].data_ptr() for k in SELFTEST_OPS], n)
+    return outs

@@ -19,7 +19,7 @@ from .._device import check_same_device, check_words
 from ..kernels import INT, PTR, SIZE, Kernel
 from . import field as F
 
-CHUNK = 16          # lanes per Montgomery chain (per CUDA thread)
+CHUNK = 16          # lanes per Montgomery chain (per CUDA thread): csrc/inv_affine.cu's M
 
 KERNEL = Kernel(
     "inv_affine", "vk_inv_affine", [PTR, PTR, PTR, PTR, PTR, PTR, SIZE, INT],

@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -122,6 +123,35 @@ def library() -> Library:
     cdll.vk_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.exists() else ""
     return Library(cdll, so, seconds, log)
+
+
+def entry_name(mangled: str) -> str:
+    """The unqualified name of a mangled (Itanium C++ ABI) entry function,
+    ``_ZN12_GLOBAL__N_111smul_kernelE...`` -> ``smul_kernel``; an unmangled
+    name as it is."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    name, i = mangled, 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        i = j + int(mangled[i:j])
+        name = mangled[j:i]
+    return name
+
+
+def ptxas_usage(log: str) -> list[tuple[str, int, int, int]]:
+    """(entry function's name, registers, stack bytes, spill store + load
+    bytes) per entry of a ``-Xptxas -v`` log."""
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads.*?Used (\d+) registers", chunk, flags=re.S)
+        if m:
+            stack, st, ld, regs = map(int, m.groups())
+            out.append((entry_name(chunk.split("'")[0]), regs, stack, st + ld))
+    return out
 
 
 class Kernel:
