@@ -3,21 +3,29 @@
     python3 chip_smoke.py
 
 Drives vuke_tpu_torch's scan paths on the card, the milksad seed ->
-hash160 -> target match (K1 -> K3 -> K4 -> K2), the sequential direct:be
-scan (K5 -> K4 -> K2), and both again with the byte-window scalar
-multiplication (``VUKE_TPU_SMUL13=0``: K6 in place of K3), and fails
-(non-zero exit, no result line) unless every phase passes:
+hash160 -> target match (K1 with normalize in its epilogue -> K3 -> K4 ->
+K2 with the match fragments in its epilogue; the scan's superbatches
+normalize K1's raw words with the normalize kernel), the sequential
+direct:be scan (K5 -> K4 -> K2), and both again with the byte-window
+scalar multiplication (``VUKE_TPU_SMUL13=0``: K6 in place of K3), and
+fails (non-zero exit, no result line) unless every phase passes:
 
 1. environment: torch / CUDA / nvcc versions, capability (9, 0), the
    card's name, power limit and maximum SM clock;
 2. build: one nvcc per csrc/*.cu, all at once (time, and each kernel's
-   registers, stack and spill bytes from ``-Xptxas -v``);
+   registers, stack and spill bytes from ``-Xptxas -v``); then each
+   kernel's issued instructions per thread on the ALU and FMA pipes from
+   its SASS (``kernels/sass.py``), weighted by its loops' trip counts
+   (``LOOP_TRIPS``), printed beside the operations its function needs;
 3. the field library's self-test (``csrc/fe_selftest.cu``: fe_mul, fe_sqr,
    fe_inv, fe_canon, fe_add, fe_sub) against Python integers on every pair
    of adversarial operands and 16384 random pairs; then each kernel against
    its plain PyTorch version on the card at N = 16384, lane-exact, on
    adversarial inputs, and 64 lanes against host oracles (numpy's MT19937,
-   the port's bignum secp256k1 and encodings, hashlib);
+   the port's bignum secp256k1 and encodings, hashlib): K1 raw and with
+   normalize, K2's digests and its fragments; the normalize
+   kernel on every ``scalar_edge`` word and 2^19 random ones, lane-exact
+   and the edge words against Python's k mod n (0 -> 1);
 4. the milksad derive at batch 2^19 through the kernels against the plain
    path on the card (lane-exact) and 256 sampled lanes against the host;
    4b. the sequential derive at batch 2^19 across 2^63 against the K3 path
@@ -30,7 +38,7 @@ multiplication (``VUKE_TPU_SMUL13=0``: K6 in place of K3), and fails
 5. the milksad main path through the user's entry point (the ``scan``
    command) over 2^22 seeds with one planted target among 4096 decoys:
    exactly that hit; the path's launch counts are reset before and read
-   after;
+   after (the normalize kernel once a superbatch);
    5b. the direct:be path through ``scan``: 2^24 keys across 2^63 (every
    superbatch sequential), and [1, 2^21], whose first two superbatches
    take K3 and last two K5; each finds exactly its planted key, and each
@@ -39,9 +47,13 @@ multiplication (``VUKE_TPU_SMUL13=0``: K6 in place of K3), and fails
    milksad over 2^22 seeds and direct:be over [1, 2^21], with K6 launched
    in place of K3 (also for the offset table) and K3 never;
 6. the derive rates (seed_to_hash160_derivations_per_sec through K3 and
-   through K6, sequential_scan_derivations_per_sec) and each kernel's time
-   against its plain version's and its bound at the path's shapes (CUDA
-   events).
+   through K6, sequential_scan_derivations_per_sec), each derive's profile
+   (device launches a batch, torch glue, device busy, the host's issue
+   time), and each kernel's time (CUDA events, and its device time from
+   ``torch.profiler``; the normalize kernel with its input and output out
+   of L2) against its plain version's and its bound at the path's shapes:
+   the larger of its bytes over the HBM rate and the operations its
+   function needs (``kernels/work.py``) over the issue pipes' rate.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
@@ -65,48 +77,61 @@ import torch
 
 from vuke_tpu_torch import cli, encode, kernels
 from vuke_tpu_torch._device import require_cuda
-from vuke_tpu_torch.benchmark import bench_derive, bench_sequential, time_cuda
+from vuke_tpu_torch.benchmark import (bench_derive, bench_sequential, device_ms,
+                                      kernel_cases, profile_derive, profile_sequential,
+                                      time_cuda)
 from vuke_tpu_torch.cores import hash160, mt19937
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
-from vuke_tpu_torch.ecc import inv, pubkey, ref, smul, smul_w8, tiled
+from vuke_tpu_torch.ecc import inv, pubkey, ref, scalar, smul, smul_w8, tiled
+from vuke_tpu_torch.kernels import sass, work
 
 N_KERNEL = 16384
 BATCH = 1 << 19
 SCAN_SEEDS = 1 << 22
 SEQ_SCAN_KEYS = 1 << 24
-KERNELS = {"mt19937": mt19937.KERNEL, "smul": smul.KERNEL, "smul_w8": smul_w8.KERNEL,
-           "seq_madd": inc.KERNEL, "inv_affine": inv.KERNEL, "hash160": hash160.KERNEL}
+KERNELS = {"mt19937": mt19937.KERNEL, "normalize": scalar.KERNEL, "smul": smul.KERNEL,
+           "smul_w8": smul_w8.KERNEL, "seq_madd": inc.KERNEL, "inv_affine": inv.KERNEL,
+           "hash160": hash160.KERNEL}
 MILKSAD_PATH = ("mt19937", "smul", "inv_affine", "hash160")
 
-# Least time for each kernel's work at N lanes: the larger of its bytes over
-# the HBM rate and its 32-bit integer operations over the SM's rate for
-# them.  Per lane: (bytes, each input read once and each output written
-# once; operations counted from the source, fewest the function needs).
-# A 32x32 -> 64-bit product is two 32-bit multiply results (low and high
-# word), so a field product (8 x 8 limbs) is 128 of them and a squaring
-# (28 cross products + 8 squares) 72.
+# Least time for each kernel's work at N lanes: the larger of its bytes
+# over the HBM rate and the operations its function needs per lane
+# (kernels/work.py: multiply results on the FMA pipe, logic, shifts and
+# selects on the ALU pipe, adds on either) over the SMs' issue rate, 64 a
+# clock on each pipe.  Bytes per lane: each input read once and each output
+# written once.
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-INT_OPS_PER_SM_CLOCK = 64            # 32-bit IMAD or SHF per SM per clock (sm_90)
-MUL_OPS, SQR_OPS = 2 * 64, 2 * 36
-MADD_OPS = 8 * MUL_OPS + 2 * SQR_OPS    # mixed addition: 8M + 2S
-WORK_PER_LANE = {
-    # 4 B seed in, 32 B key out; 404 multiplies of the init_genrand chain
-    "mt19937": (36, 404),
-    # 32 B scalar in, 4 x 32 B out; 25 mixed additions (the 0.85 MB table
-    # is added once below)
-    "smul": (160, 25 * MADD_OPS),
-    # 32 B scalar in, 4 x 32 B out; 31 mixed additions (window 0 only seeds;
-    # the 512 KiB table is added once below)
-    "smul_w8": (160, 31 * MADD_OPS),
-    # 2 x 32 B offset in, 4 x 32 B out; 5M + 2S
-    "seq_madd": (192, 5 * MUL_OPS + 2 * SQR_OPS),
-    # 4 x 32 B in, 2 x 32 B out; Montgomery batch inversion, 8 products per
-    # lane (the one shared inversion amortized away)
-    "inv_affine": (192, 8 * MUL_OPS),
-    # 2 x 32 B in, 2 x 20 B out; rotates: 3 SHA-256 blocks x 64 rounds x 6
-    # plus 2 RIPEMD-160 blocks x 160 steps x 2
-    "hash160": (104, 3 * 64 * 6 + 2 * 160 * 2),
+INT_OPS_PER_SM_CLOCK = 64            # 32-bit integer operations per SM per clock, each pipe
+BYTES_PER_LANE = {
+    "mt19937": 36,       # 4 B seed in, 32 B key out
+    "normalize": 64,     # 32 B in, 32 B out
+    "smul": 160,         # 32 B scalar in, 4 x 32 B out (+ the 0.85 MB table once)
+    "smul_w8": 160,      # 32 B scalar in, 4 x 32 B out (+ the 512 KiB table once)
+    "seq_madd": 192,     # 2 x 32 B offset in, 4 x 32 B out
+    "inv_affine": 192,   # 4 x 32 B in, 2 x 32 B out
+    "hash160": 120,      # 2 x 32 B in, 2 x 20 B digests and 16 B of fragments out
+}
+# The diagnostic beside the bound: each kernel's SASS (phase 2), every
+# instruction weighted by the trip counts of the loops around it, listed
+# here per region (the kernel's own body, then each called body) in the
+# order of the loops' back branches.  inv_affine's thread works for
+# inv.CHUNK lanes.
+LANES_PER_THREAD = {"inv_affine": inv.CHUNK}
+LOOP_TRIPS = {
+    # the init_genrand steps 9..396, unrolled by 4
+    "mt19937_kernel": [[97]],
+    "normalize_kernel": [[]],
+    "hash160_kernel": [[]],
+    # 25 digits recoded; windows 1..25 added
+    "smul_kernel": [[25, 25]],
+    # 32 byte windows, the first only seeds: 31 additions (the digit shifts
+    # of window 0 go uncounted, so the bound stays below)
+    "smul_w8_kernel": [[31]],
+    "seq_madd_kernel": [[]],
+    # 16 lanes forward and back; then fe_inv (a call), its squaring runs of
+    # 2 or more
+    "inv_affine_kernel": [[16, 16], [3, 3, 2, 11, 22, 44, 88, 44, 3, 23, 5, 3, 2]],
 }
 TABLE_BYTES = {"smul": smul.WINDOWS * smul.TSIZE * 64,
                "smul_w8": smul_w8.WINDOWS * smul_w8.TSIZE * 64}
@@ -192,6 +217,24 @@ FIELD_EDGE = ((0, 1, 2, P - 2, P - 1, P, P + 1, (1 << 256) - 1, (1 << 256) - (1 
               + tuple(0xFFFFFFFF << (32 * i) for i in range(8)))
 
 
+def scalar_edge() -> list[int]:
+    """Scalars below 2^256 at the edges of the reduction mod n: 0, 1, n-1,
+    n, n+1, 2^256-1 and others; n's top seven words with each edge low
+    word; and n with any one word set to 0, its value -1 or +1, or 2^32-1
+    (each word's compare decides there)."""
+    words = [(N >> (32 * (7 - i))) & 0xFFFFFFFF for i in range(8)]
+    out = [0, 1, 2, N - 2, N - 1, N, N + 1, N + 2, 1 << 255, P - 1, P, (1 << 256) - N,
+           (1 << 256) - 2, (1 << 256) - 1]
+    top = N >> 32 << 32
+    out += [top | low for low in (0, 1, words[7] - 1, words[7], words[7] + 1, 0xFFFFFFFF)]
+    for i in range(8):
+        for v in {0, words[i] - 1, min(words[i] + 1, 0xFFFFFFFF), 0xFFFFFFFF}:
+            w = list(words)
+            w[i] = v
+            out.append(sum(x << (32 * (7 - j)) for j, x in enumerate(w)))
+    return sorted(set(out))
+
+
 def field_operands(n_random: int, seed: int) -> tuple[list[int], list[int]]:
     """(a, b) Python ints: every pair of ``FIELD_EDGE`` values, then
     ``n_random`` random pairs below 2^256."""
@@ -256,13 +299,21 @@ def phase_environment():
     return dev, smi, int_ops_per_s
 
 
-def phase_build(card: str):
+def phase_build(card: str) -> dict:
+    """Build the library; return each kernel's ``sass.Pipes`` per thread."""
     lib = kernels.library()
     parts = []
     for name, regs, stack, spill in kernels.ptxas_usage(lib.log):
         parts.append(f"{name}: {regs} regs, stack {stack} B, spills {spill} B")
     summary = ", ".join(parts)
     say(f"[2 build] nvcc (one per source, in parallel) built {lib.path.name} in {lib.build_seconds:.1f} s [{card}]; {summary}")
+    counts = sass.kernel_pipes(sass.dump(lib.path),
+                               {k.entry: LOOP_TRIPS[k.entry] for k in KERNELS.values()})
+    pipes = {name: counts[k.entry] for name, k in KERNELS.items()}
+    say("[2 sass] per thread, weighted by loop trips (LOOP_TRIPS): " + "; ".join(
+        f"{name}: ALU {p.alu:.0f}, FMA {p.fma:.0f} (2-cycle units), issued {p.issued:.0f}"
+        for name, p in pipes.items()))
+    return pipes
 
 
 def phase_field(dev, rng):
@@ -292,13 +343,20 @@ def phase_kernels(dev, rng) -> dict:
     seeds = torch.from_numpy(seeds_np).to(dev)
     kw = mt19937.milksad_key_words(seeds)
     errs["mt19937"] = exact_err("K1", [kw], [mt19937.milksad_key_words_plain(seeds)])
+    kwn = mt19937.milksad_key_words(seeds, normalize=True)
+    errs["mt19937"] = max(errs["mt19937"], exact_err(
+        "K1 normalize", [kwn], [mt19937.milksad_key_words_plain(seeds, normalize=True)]))
+    exact_err("K1 normalize vs K1 + normalize_words_plain", [kwn],
+              [scalar.normalize_words_plain(kw)])
     kw_cpu = kw.cpu()
     oracle = list(range(4)) + rng.choice(np.arange(4, N_KERNEL), 60, replace=False).tolist()
     for j in oracle:
         if lane_int_be(kw_cpu, j).to_bytes(32, "big") != host_milksad_key(int(seeds_np[j])):
             raise AssertionError(f"K1 lane {j} (seed {seeds_np[j]}) differs from numpy's MT19937")
-    say(f"[3 K1 mt19937] N={N_KERNEL} kernel == plain lane-exact (max abs err 0); "
-        f"64 lanes == numpy MT19937 (seeds 0, 1, 5489, 2^32-1 included)")
+    say(f"[3 K1 mt19937] N={N_KERNEL} kernel == plain lane-exact (max abs err 0), raw and "
+        f"with normalize (== the raw words through normalize_words_plain); 64 lanes == "
+        f"numpy MT19937 (seeds 0, 1, 5489, 2^32-1 included)")
+    errs["normalize"] = phase_normalize(dev, rng)
 
     # K3: adversarial scalars (before normalization), then random ones
     n, p = N, P
@@ -366,18 +424,49 @@ def phase_kernels(dev, rng) -> dict:
     # K2: random x, y
     xw = torch.from_numpy(rng.integers(0, 1 << 32, (8, N_KERNEL), dtype=np.uint32)).to(dev)
     yw = torch.from_numpy(rng.integers(0, 1 << 32, (8, N_KERNEL), dtype=np.uint32)).to(dev)
-    hc, hu = hash160.hash160s(xw, yw)
-    errs["hash160"] = exact_err("K2", [hc, hu], list(hash160.hash160s_plain(xw, yw)))
+    hc, hu, fc, fu = hash160.hash160s_and_fragments(xw, yw)
+    pc, pu, pfc, pfu = hash160.hash160s_and_fragments_plain(xw, yw)
+    errs["hash160"] = exact_err("K2", [hc, hu, *fc, *fu], [pc, pu, *pfc, *pfu])
     xw_c, yw_c, hc_c, hu_c = xw.cpu(), yw.cpu(), hc.cpu(), hu.cpu()
+    frags = [as_i64(f).cpu() for f in (*fc, *fu)]
     for j in rng.choice(N_KERNEL, 64, replace=False).tolist():
         xb = lane_int_be(xw_c, j).to_bytes(32, "big")
         yb = lane_int_be(yw_c, j).to_bytes(32, "big")
-        if (digest_le(hc_c, j) != host_hash160(bytes([2 + (yb[-1] & 1)]) + xb)
-                or digest_le(hu_c, j) != host_hash160(b"\x04" + xb + yb)):
+        dc = host_hash160(bytes([2 + (yb[-1] & 1)]) + xb)
+        du = host_hash160(b"\x04" + xb + yb)
+        if digest_le(hc_c, j) != dc or digest_le(hu_c, j) != du:
             raise AssertionError(f"K2 lane {j} differs from the host hash160")
-    say(f"[3 K2 hash160] N={N_KERNEL} kernel == plain lane-exact (max abs err 0); "
-        f"64 lanes == host SHA-256 + {ripemd160_source()}")
+        got = b"".join(int(f[j]).to_bytes(4, "big") for f in frags)
+        if got != dc[:8] + du[:8]:
+            raise AssertionError(f"K2 lane {j}: fragments differ from the host digests' 8 bytes")
+    say(f"[3 K2 hash160] N={N_KERNEL} kernel == plain lane-exact (max abs err 0) for the "
+        f"digests and the 4 fragment words; 64 lanes == host "
+        f"SHA-256 + {ripemd160_source()}, fragments == each digest's first 8 bytes")
     return errs
+
+
+def phase_normalize(dev, rng) -> int:
+    """The normalize kernel on every ``scalar_edge`` word and random words
+    up to 2^19 lanes, lane-exact against its plain version; the edge words
+    against Python's k mod n (0 -> 1)."""
+    edge = scalar_edge()
+    raw = rng.integers(0, 1 << 32, (8, BATCH), dtype=np.uint32)
+    raw[:, :len(edge)] = words_be(edge).numpy()
+    w = torch.from_numpy(raw).to(dev)
+    before = scalar.KERNEL.launches
+    got = scalar.normalize_words(w)
+    torch.cuda.synchronize()
+    if scalar.KERNEL.launches != before + 1:
+        raise AssertionError("normalize_words did not launch its kernel once")
+    err = exact_err("normalize", [got], [scalar.normalize_words_plain(w)])
+    got_cpu = got[:, :len(edge)].cpu()
+    for j, k in enumerate(edge):
+        if lane_int_be(got_cpu, j) != (k % N or 1):
+            raise AssertionError(f"normalize lane {j} (k={k:#x}) differs from k mod n")
+    say(f"[3 normalize] N={BATCH}: kernel == plain lane-exact (max abs err 0); {len(edge)} "
+        f"edge words (0, 1, n-1, n, n+1, 2^256-1, n's top words with each low word, n with "
+        f"one word changed) == k mod n, 0 -> 1")
+    return err
 
 
 def phase_k6(dev, rng) -> int:
@@ -649,7 +738,8 @@ def phase_scan(dev, rng, decoys) -> dict:
     summary, launches, secs = run_scan("milksad", start, end, planted, target, decoys,
                                        SCAN_SEEDS, "milksad")
     check_launches("milksad scan", launches,
-                   {name: None for name in MILKSAD_PATH} | {"seq_madd": 0, "smul_w8": 0})
+                   {name: None for name in MILKSAD_PATH}
+                   | {"normalize": SCAN_SEEDS // BATCH, "seq_madd": 0, "smul_w8": 0})
     say(f"[5 scan] milksad range [{start}, {end}] ({SCAN_SEEDS} seeds, batch {BATCH}) vs "
         f"4096 decoys + 1 planted: exactly 1 hit, seed {planted} -> {target}; "
         f"{summary['candidates']} device candidates; {secs:.2f} s host wall clock; "
@@ -672,7 +762,7 @@ def phase_seq_scan(dev, rng, decoys) -> list:
                                        SEQ_SCAN_KEYS, "direct")
     check_launches("direct:be scan across 2^63", launches,
                    {"seq_madd": batches, "inv_affine": batches, "hash160": batches,
-                    "smul": 0, "smul_w8": 0, "mt19937": 0})
+                    "smul": 0, "smul_w8": 0, "mt19937": 0, "normalize": 0})
     runs.append(launches)
     say(f"[5b direct:be scan] range [2^63 - {SEQ_SCAN_KEYS // 2}, 2^63 + {SEQ_SCAN_KEYS // 2}) "
         f"({SEQ_SCAN_KEYS} keys, batch "
@@ -685,7 +775,7 @@ def phase_seq_scan(dev, rng, decoys) -> list:
     summary, launches, secs = run_scan("direct:be", 1, end, 700, target, decoys, end, "direct")
     check_launches("direct:be scan of [1, 2^21]", launches,
                    {"smul": 2, "smul_w8": 0, "seq_madd": 2, "inv_affine": 4, "hash160": 4,
-                    "mt19937": 0})
+                    "mt19937": 0, "normalize": 2})
     runs.append(launches)
     say(f"[5b direct:be scan] range [1, {end}] vs 4096 decoys + key 700: exactly 1 hit; "
         f"superbatches from 1 and {BATCH + 1} took K3, from {2 * BATCH + 1} and "
@@ -712,7 +802,7 @@ def phase_scan_k6(dev, rng, decoys) -> list:
                                            SCAN_SEEDS, "milksad")
     check_launches("milksad scan, VUKE_TPU_SMUL13=0", launches,
                    {"smul_w8": batches, "smul": 0, "mt19937": batches, "inv_affine": batches,
-                    "hash160": batches, "seq_madd": 0})
+                    "hash160": batches, "seq_madd": 0, "normalize": batches})
     runs.append(launches)
     say(f"[5c scan, VUKE_TPU_SMUL13=0] milksad range [{start}, {end}] ({SCAN_SEEDS} seeds, "
         f"batch {BATCH}) vs 4096 decoys + 1 planted: exactly 1 hit, seed {planted} -> "
@@ -726,7 +816,7 @@ def phase_scan_k6(dev, rng, decoys) -> list:
                                            "direct")
     check_launches("direct:be scan of [1, 2^21], VUKE_TPU_SMUL13=0", launches,
                    {"smul_w8": 3, "smul": 0, "seq_madd": 2, "inv_affine": 5, "hash160": 4,
-                    "mt19937": 0})
+                    "mt19937": 0, "normalize": 2})
     runs.append(launches)
     say(f"[5c direct:be scan, VUKE_TPU_SMUL13=0] range [1, {end}] vs 4096 decoys + key 700: "
         f"exactly 1 hit; superbatches from 1 and {BATCH + 1} took K6, the offset table was "
@@ -735,63 +825,107 @@ def phase_scan_k6(dev, rng, decoys) -> list:
     return runs
 
 
-def bound(name: str, n: int, int_ops_per_s: float):
-    """(bound_ms, bound_by) of ``name``'s work at ``n`` lanes."""
-    nbytes, ops = WORK_PER_LANE[name]
-    t_bytes = (nbytes * n + TABLE_BYTES.get(name, 0)) / HBM_BYTES_PER_S
-    t_ops = ops * n / int_ops_per_s
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def work_per_lane(name: str, k6_additions: float) -> work.Ops:
+    """The operations ``name``'s function needs per lane; K6's depend on its
+    scalars: ``k6_additions`` mixed additions per lane."""
+    return {"mt19937": work.mt19937(), "normalize": work.NORMALIZE, "smul": work.smul(),
+            "smul_w8": work.smul_w8(k6_additions), "seq_madd": work.seq_madd(),
+            "inv_affine": work.inv_affine(inv.CHUNK), "hash160": work.hash160()}[name]
 
 
-def phase_rate(dev, rng, card: str, int_ops_per_s: float) -> dict:
-    r = bench_derive(batch=BATCH)
-    say(f"[6 rate] {r['metric']} through {r['smul']} = {r['derivations_per_sec']:.0f} at "
-        f"batch {BATCH} ({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}) "
-        f"[{card}]")
-    r = bench_derive(batch=BATCH, smul13=False)
-    say(f"[6c rate] {r['metric']} through {r['smul']} = {r['derivations_per_sec']:.0f} at "
-        f"batch {BATCH} ({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}) "
-        f"[{card}]")
-    r = bench_sequential(batch=BATCH)
-    say(f"[6b rate] {r['metric']} = {r['derivations_per_sec']:.0f} at batch {BATCH} "
-        f"({r['ms_per_batch']:.3f} ms/batch, best of windows {r['window_ms']}); offset table "
-        f"built in {r['offset_table_seconds']:.3f} s before the clock [{card}]")
+def k6_additions(words: torch.Tensor) -> float:
+    """Mixed additions per lane that K6 runs on the (8, N) scalar words,
+    averaged: the non-zero bytes after the first (zero digits are skipped)."""
+    w = as_i64(words)
+    nonzero = sum((((w >> s) & 0xFF) != 0).sum(dim=0) for s in (0, 8, 16, 24))
+    return float((nonzero - 1).clamp(min=0).double().mean())
+
+
+def bound(name: str, n: int, int_ops_per_s: float, ops: work.Ops):
+    """(bound_ms, bound_by, limit) of ``name``'s work at ``n`` lanes, ``ops``
+    its operations per lane: ``bound_by`` is "bytes" or "operations",
+    ``limit`` the term that sets it ("bytes", or the pipe: "FMA", "ALU" or
+    "both")."""
+    t_bytes = (BYTES_PER_LANE[name] * n + TABLE_BYTES.get(name, 0)) / HBM_BYTES_PER_S
+    t_ops = ops.cycles() * n / int_ops_per_s
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", "bytes"
+    return t_ops * 1e3, "operations", ops.pipe()
+
+
+def phase_profiles(card: str):
+    """Each derive's rate, then its profile: device launches and torch glue
+    a batch, device busy, the host's issue time and the idle share.  A
+    milksad batch may launch 8 kernels (its four, the bench's 3 of seed
+    arithmetic and one spare), a sequential one 4 (its three and a spare)."""
+    runs = (("6", "K3 derive", 8, lambda: bench_derive(batch=BATCH),
+             lambda: profile_derive(batch=BATCH)),
+            ("6c", "K6 derive", 8, lambda: bench_derive(batch=BATCH, smul13=False),
+             lambda: profile_derive(batch=BATCH, smul13=False)),
+            ("6b", "sequential", 4, lambda: bench_sequential(batch=BATCH),
+             lambda: profile_sequential(batch=BATCH)))
+    for tag, what, most, bench, prof in runs:
+        r = bench()
+        extra = (f"; offset table built in {r['offset_table_seconds']:.3f} s before the clock"
+                 if "offset_table_seconds" in r else f" through {r['smul']}")
+        say(f"[{tag} rate] {r['metric']}{extra} = {r['derivations_per_sec']:.0f} at batch "
+            f"{BATCH} ({r['ms_per_batch']:.4f} ms/batch, best of windows {r['window_ms']}) "
+            f"[{card}]")
+        p = prof()
+        kern = ", ".join(f"{k} {v:.4f}" for k, v in p["kernels_ms_per_batch"].items())
+        say(f"[{tag} profile] {what}: {p['launches_per_batch']:g} device launches a batch, "
+            f"{p['glue_launches_per_batch']:g} of them torch glue ({p['glue_ms_per_batch']:.4f} "
+            f"ms); device busy {p['device_busy_ms_per_batch']:.4f} ms; host issue "
+            f"{p['host_issue_ms_per_batch']:.4f} ms a batch, drain {p['device_drain_ms']:.4f} ms; "
+            f"wall under the profiler {p['wall_ms_per_batch']:.4f} ms, idle share "
+            f"{p['device_idle_share']:.3f}; host waits {p['host_waits_per_batch']:g}; "
+            f"device ms: {kern} [{card}]")
+        if p["launches_per_batch"] > most:
+            raise AssertionError(f"{what}: {p['launches_per_batch']} device launches a batch, "
+                                 f"more than {most}: torch glue is back between the kernels")
+
+
+def phase_rate(dev, rng, card: str, int_ops_per_s: float, pipes: dict) -> dict:
+    """Each kernel at the main path's shapes: CUDA events around 20 launches,
+    the device time of 20 under ``torch.profiler`` (without the host's share
+    that events around a short launch take in), the plain version and the
+    bound; beside the bound, the operations the function needs per lane
+    and what the kernel's SASS issues (phase 2)."""
+    phase_profiles(card)
     seeds = torch.from_numpy(rng.integers(0, 1 << 32, BATCH, dtype=np.uint32)).to(dev)
-    norm = tiled.normalize_words(mt19937.milksad_key_words(seeds))
-    table = smul.table_on(str(dev))
-    table_w8 = smul_w8.table_on(str(dev))
-    outs = smul.scalar_mul(norm)
-    x, y = inv.affine(*outs)
-    offx, offy = inc.offset_table(BATCH, dev)
-    bx, by = point_mul((1 << 48) - 1)
-    cases = {
-        "mt19937": (lambda: mt19937.milksad_key_words(seeds),
-                    lambda: mt19937.milksad_key_words_plain(seeds)),
-        "smul": (lambda: smul.scalar_mul(norm),
-                 lambda: smul.scalar_mul_plain(norm, table)),
-        "smul_w8": (lambda: smul_w8.scalar_mul(norm),
-                    lambda: smul_w8.scalar_mul_plain(norm, table_w8)),
-        "seq_madd": (lambda: inc.seq_madd(offx, offy, bx, by),
-                     lambda: inc.seq_madd_plain(offx, offy, bx, by)),
-        "inv_affine": (lambda: inv.affine(*outs), lambda: inv.affine_plain(*outs)),
-        "hash160": (lambda: hash160.hash160s(x, y), lambda: hash160.hash160s_plain(x, y)),
-    }
+    cases = kernel_cases(dev, seeds)
+    adds = k6_additions(mt19937.milksad_key_words(seeds, normalize=True))
     times = {}
-    for name, (kern, plain) in cases.items():
+    for name in KERNELS:
+        kern, plain = cases[name]
         ms = time_cuda(kern, iters=20, warmup=3)
+        dev_ms = device_ms(kern, [KERNELS[name]], iters=20)
         plain_ms = time_cuda(plain, iters=2, warmup=1)
-        bound_ms, bound_by = bound(name, BATCH, int_ops_per_s)
+        ops = work_per_lane(name, adds)
+        bound_ms, bound_by, limit = bound(name, BATCH, int_ops_per_s, ops)
         times[name] = (ms, plain_ms, bound_ms, bound_by)
-        say(f"[6 time] {name} at N={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms "
-            f"({plain_ms / ms:.1f}x), bound {bound_ms:.4f} ms by {bound_by} "
-            f"({100 * bound_ms / ms:.1f}% of it) [{card}]")
+        note = ""
+        if name == "mt19937":
+            fn = cases["mt19937 raw"][0]
+            note = (f"; raw words: {time_cuda(fn, iters=20, warmup=3):.4f} ms events, "
+                    f"{device_ms(fn, [KERNELS[name]], iters=20):.4f} ms device")
+        if name == "smul_w8":
+            note = f"; {adds:.4f} additions a lane on these scalars"
+        lanes = LANES_PER_THREAD.get(name, 1)
+        p = pipes[name]
+        say(f"[6 time] {name} at N={BATCH}: kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms "
+            f"device (profiler), plain {plain_ms:.2f} ms ({plain_ms / ms:.1f}x), bound "
+            f"{bound_ms:.4f} ms by {limit} ({100 * bound_ms / dev_ms:.1f}% of the device "
+            f"time); needs a lane {ops.mul:.0f} multiplies, {ops.alu:.0f} ALU, {ops.add:.0f} "
+            f"adds; SASS issues a lane {p.alu / lanes:.0f} ALU, {p.fma / lanes:.0f} FMA "
+            f"2-cycle units, {p.issued / lanes:.0f} in all{note} [{card}]")
     return times
 
 
 def main() -> int:
     dev, card, int_ops_per_s = phase_environment()
     rng = np.random.default_rng(20261016)
-    phase_build(card)
+    pipes = phase_build(card)
     phase_field(dev, rng)
     errs = phase_kernels(dev, rng)
     phase_derive(dev, rng)
@@ -801,7 +935,7 @@ def main() -> int:
     decoys = [p2pkh_address(rng.bytes(20)) for _ in range(4096)]
     runs = ([phase_scan(dev, rng, decoys)] + phase_seq_scan(dev, rng, decoys)
             + phase_scan_k6(dev, rng, decoys))
-    times = phase_rate(dev, rng, card, int_ops_per_s)
+    times = phase_rate(dev, rng, card, int_ops_per_s, pipes)
     summary = {"kernels": [
         {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": sum(run[name] for run in runs), "max_abs_err": errs[name],

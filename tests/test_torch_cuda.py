@@ -15,7 +15,7 @@ import chip_smoke
 from vuke_tpu_torch.cores import hash160, mt19937
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
-from vuke_tpu_torch.ecc import inv, pubkey, ref, smul, smul_w8, tiled
+from vuke_tpu_torch.ecc import inv, pubkey, ref, scalar, smul, smul_w8, tiled
 
 pytestmark = [
     pytest.mark.cuda_only,
@@ -56,6 +56,33 @@ def test_mt19937_kernel_matches_plain(dev):
     before = mt19937.KERNEL.launches
     assert _eq(mt19937.milksad_key_words(s), mt19937.milksad_key_words_plain(s))
     assert mt19937.KERNEL.launches == before + 1
+
+
+def test_mt19937_normalize_kernel_matches_plain(dev):
+    """K1 with the reduction mod n in its epilogue: its plain version, and
+    the raw kernel's words through the normalize kernel."""
+    s = _seeds(dev)
+    before = mt19937.KERNEL.launches
+    got = mt19937.milksad_key_words(s, normalize=True)
+    assert mt19937.KERNEL.launches == before + 1
+    assert _eq(got, mt19937.milksad_key_words_plain(s, normalize=True))
+    assert _eq(got, scalar.normalize_words(mt19937.milksad_key_words(s)))
+
+
+def test_normalize_kernel_matches_plain(dev):
+    """Every ``chip_smoke.scalar_edge`` word, then random words: one
+    launch, lane-exact, and the edge words equal k mod n (0 -> 1)."""
+    edge = chip_smoke.scalar_edge()
+    w = np.random.default_rng(5).integers(0, 1 << 32, (8, N), dtype=np.uint32)
+    w[:, :len(edge)] = chip_smoke.words_be(edge).numpy()
+    words = torch.from_numpy(w).to(dev)
+    before = scalar.KERNEL.launches
+    got = scalar.normalize_words(words)
+    assert scalar.KERNEL.launches == before + 1
+    assert _eq(got, scalar.normalize_words_plain(words))
+    got = got.to(torch.int64).cpu()
+    for j, k in enumerate(edge):
+        assert chip_smoke.lane_int_be(got, j) == (k % ref.N or 1)
 
 
 def test_smul_kernel_matches_plain_mod_p(dev):
@@ -130,6 +157,19 @@ def test_hash160_kernel_matches_plain(dev):
     x = torch.from_numpy(rng.integers(0, 1 << 32, (8, N), dtype=np.uint32)).to(dev)
     y = torch.from_numpy(rng.integers(0, 1 << 32, (8, N), dtype=np.uint32)).to(dev)
     for g, w in zip(hash160.hash160s(x, y), hash160.hash160s_plain(x, y)):
+        assert _eq(g, w)
+
+
+def test_hash160_fragments_kernel_matches_plain(dev):
+    """K2 with its fragment epilogue: digests and the four fragment words."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(0, 1 << 32, (8, N), dtype=np.uint32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1 << 32, (8, N), dtype=np.uint32)).to(dev)
+    before = hash160.KERNEL.launches
+    hc, hu, fc, fu = hash160.hash160s_and_fragments(x, y)
+    assert hash160.KERNEL.launches == before + 1
+    pc, pu, pfc, pfu = hash160.hash160s_and_fragments_plain(x, y)
+    for g, w in zip((hc, hu, *fc, *fu), (pc, pu, *pfc, *pfu)):
         assert _eq(g, w)
 
 

@@ -2,9 +2,12 @@
 
 The Pallas kernel body ``_mt_kernel`` is run eagerly under numpy (refs are
 plain arrays), and ``mt19937.milksad_key_words`` under the package's numpy
-backend: no jax compile.  Lane-exact (tolerance 0: integer outputs).
+backend: no jax compile.  With ``normalize``, against that body followed by
+``tiled._normalize_words_t`` (eager jax on the CPU).  Lane-exact (tolerance
+0: integer outputs).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -12,7 +15,9 @@ import torch
 import vuke_tpu.cores.pallas_kernels as pk
 from vuke_tpu._lazy import numpy_backend
 from vuke_tpu.cores import mt19937 as jmt
+from vuke_tpu.ecc import tiled as jtiled
 from vuke_tpu_torch.cores import mt19937
+from vuke_tpu_torch.ecc import scalar
 
 ADVERSARIAL = [0, 1, 5489, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF]
 
@@ -33,6 +38,24 @@ def test_plain_matches_pallas_kernel_body(monkeypatch):
     out = np.zeros((8, 2, 8, 128), dtype=np.uint32)
     pk._mt_kernel(seeds.reshape(2, 8, 128), out)
     assert np.array_equal(_port(seeds), out.reshape(8, 2048))
+
+
+def test_normalize_plain_matches_pallas_kernel_body_then_normalize(monkeypatch):
+    monkeypatch.setattr(pk, "jnp", np)
+    seeds = _seeds(2048, seed=3)
+    out = np.zeros((8, 2, 8, 128), dtype=np.uint32)
+    pk._mt_kernel(seeds.reshape(2, 8, 128), out)
+    want = np.asarray(jtiled._normalize_words_t(jnp.asarray(out.reshape(8, 2048))))
+    got = mt19937.milksad_key_words(torch.from_numpy(seeds), normalize=True)
+    assert np.array_equal(got.to(torch.int64).numpy(), want)
+
+
+def test_normalize_is_the_raw_words_through_normalize_words():
+    seeds = torch.from_numpy(_seeds(512, seed=4))
+    raw = mt19937.milksad_key_words(seeds)
+    got = mt19937.milksad_key_words(seeds, normalize=True)
+    assert got.dtype == torch.uint32 and got.shape == (8, 512)
+    assert torch.equal(got.to(torch.int64), scalar.normalize_words_plain(raw).to(torch.int64))
 
 
 def test_plain_matches_milksad_key_words_numpy_backend():
@@ -60,3 +83,10 @@ def test_cpu_tensor_never_launches():
     before = mt19937.KERNEL.launches
     mt19937.milksad_key_words(torch.zeros(32, dtype=torch.uint32))
     assert mt19937.KERNEL.launches == before
+
+
+def test_cpu_tensor_never_launches_with_normalize():
+    before = mt19937.KERNEL.launches
+    kw = mt19937.milksad_key_words(torch.zeros(32, dtype=torch.uint32), normalize=True)
+    assert mt19937.KERNEL.launches == before
+    assert kw.dtype == torch.uint32 and kw.shape == (8, 32)

@@ -177,6 +177,28 @@ def test_sequential_core_matches_k3_path():
             assert torch.equal(g.to(torch.int64), w.to(torch.int64))
 
 
+@pytest.mark.parametrize("plain", [False, True])
+def test_sequential_core_dict_unchanged_against_the_parent_composition(plain):
+    """K5 -> K4 -> hash160 -> ``fragments``, as composed before K2 wrote
+    the fragments, on 64 keys from 2^40."""
+    from vuke_tpu_torch.cores import hash160
+
+    offx, offy = (a[:, :64].contiguous() for a in inc.offset_table(N, "cpu"))
+    bx, by = jref.point_mul((1 << 40) - 1)
+    hc, hu = hash160.hash160s_plain(*inv.affine_plain(*inc.seq_madd_plain(offx, offy, bx, by)))
+    want = {"h160c": hc.T, "h160u": hu.T, "frag_c": hash160.fragments(hc),
+            "frag_u": hash160.fragments(hu)}
+    got = inc.sequential_core(bx, by, offx, offy, plain=plain)
+    assert set(got) == set(want)
+    for key in ("h160c", "h160u"):
+        assert got[key].shape == (64, 5)
+        assert torch.equal(got[key].to(torch.int64), want[key].to(torch.int64))
+    for key in ("frag_c", "frag_u"):
+        for g, w in zip(got[key], want[key]):
+            assert g.dtype == torch.uint32 and g.shape == (64,)
+            assert torch.equal(g.to(torch.int64), w.to(torch.int64))
+
+
 def _hit_block(text):
     start = text.index("\n========== HIT ==========\n")
     end = text.index("=========================\n", start) + len("=========================\n")

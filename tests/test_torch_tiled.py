@@ -9,7 +9,9 @@ inverses -> ``tiled._limbs_to_words_t`` -> ``_hash160_kernel`` (numpy) ->
 ``byteswap32`` fragments.  h160c, h160u and both fragments must be equal.
 With ``smul13=False`` the scalar multiplication is K6's instead: the
 ``_smul_kernel`` window loop over byte digits
-(``test_torch_smul_w8.jax_k6_chain``).
+(``test_torch_smul_w8.jax_k6_chain``).  The derive dicts are also held
+against the stages composed as they were before K1 normalized and K2
+wrote the fragments (normalize, then hash160, then ``fragments``).
 """
 
 import jax.numpy as jnp
@@ -24,7 +26,9 @@ import vuke_tpu.ecc.pallas_smul13 as m13
 from vuke_tpu.cores.common import byteswap32
 from vuke_tpu.ecc import ref
 from vuke_tpu.ecc import tiled as jtiled
-from vuke_tpu_torch.ecc import tiled
+import chip_smoke
+from vuke_tpu_torch.cores import hash160, mt19937
+from vuke_tpu_torch.ecc import scalar, tiled
 
 from test_torch_smul_w8 import jax_k6_chain
 
@@ -146,7 +150,6 @@ def test_k6_slice_matches_jax(port_and_jax_k6, key):
 
 def test_derive_from_words_matches_seed_path(port_and_jax):
     seeds, got, want = port_and_jax
-    from vuke_tpu_torch.cores import mt19937
     words = mt19937.milksad_key_words(torch.from_numpy(seeds[:256]))
     d = tiled.derive_tiled_from_words(words)
     assert np.array_equal(_np(d["norm"]), want["norm"][:, :256].T)
@@ -160,6 +163,63 @@ def test_normalize_words_matches_jax(k):
     got = _np(tiled.normalize_words(torch.from_numpy(w)))
     assert np.array_equal(got, np.asarray(jtiled._normalize_words_t(jnp.asarray(w))))
     assert sum(int(got[i, 0]) << (32 * (7 - i)) for i in range(8)) == (k % ref.N or 1)
+
+
+def test_normalize_words_on_the_edge_set_matches_jax():
+    """Every ``chip_smoke.scalar_edge`` word (0, 1, n-1, n, n+1, 2^256-1,
+    n's top seven words with each edge low word, n with one word changed)
+    in one batch: against ``_normalize_words_t`` and k mod n (0 -> 1)."""
+    edge = chip_smoke.scalar_edge()
+    w = chip_smoke.words_be(edge)
+    got = _np(tiled.normalize_words(w))
+    assert np.array_equal(got, np.asarray(jtiled._normalize_words_t(jnp.asarray(w.numpy()))))
+    for j, k in enumerate(edge):
+        assert sum(int(got[i, j]) << (32 * (7 - i)) for i in range(8)) == (k % ref.N or 1)
+    assert np.array_equal(_np(scalar.normalize_words_plain(w)), got)
+
+
+def _parent_core(norm):
+    """The derive as composed before K1 normalized and K2 wrote the
+    fragments: K3 -> K4 -> hash160 -> ``fragments`` (plain stages)."""
+    hc, hu = hash160.hash160s_plain(*tiled.affine_points(norm, plain=True))
+    return {"h160c": hc.T, "h160u": hu.T, "frag_c": hash160.fragments(hc),
+            "frag_u": hash160.fragments(hu)}
+
+
+def _assert_same_dict(got, want):
+    assert set(got) == set(want)
+    for key, w in want.items():
+        pairs = zip(got[key], w) if key.startswith("frag") else [(got[key], w)]
+        for g, ww in pairs:
+            assert g.dtype == ww.dtype == torch.uint32 and g.shape == ww.shape
+            assert torch.equal(g.to(torch.int64), ww.to(torch.int64))
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_derive_dicts_unchanged_against_the_parent_composition(plain):
+    seeds = torch.from_numpy(_seeds()[:64])
+    words = mt19937.milksad_key_words_plain(seeds)
+    norm = scalar.normalize_words_plain(words)
+    want = _parent_core(norm)
+    _assert_same_dict(tiled.derive_hash160s_tiled(seeds, plain=plain), want)
+    got = tiled.derive_tiled_from_words(words, plain=plain)
+    assert torch.equal(got.pop("norm").to(torch.int64), norm.T.to(torch.int64))
+    _assert_same_dict(got, want)
+
+
+def test_seed_derive_normalizes_in_keygen(monkeypatch):
+    """The seed path takes normalized words from K1 (``normalize=True``)
+    and never runs the standalone normalize between K1 and K3."""
+    seeds = torch.from_numpy(_seeds()[:32])
+    want = tiled.derive_hash160s_tiled(seeds)
+
+    def refused(words):
+        raise AssertionError("the seed derive ran normalize_words")
+
+    monkeypatch.setattr(tiled, "normalize_words", refused)
+    _assert_same_dict(tiled.derive_hash160s_tiled(seeds), want)
+    with pytest.raises(AssertionError, match="ran normalize_words"):
+        tiled.derive_tiled_from_words(mt19937.milksad_key_words(seeds))
 
 
 def test_plain_flag_runs_the_same_stages():

@@ -11,19 +11,28 @@
   under ``sequential_scan_derivations_per_sec``.
 
 Both are timed with CUDA events after a warm-up, each measured window
-fenced by ``torch.cuda.synchronize()``, best of 3 windows.  They run only
-on a CUDA device: a measurement never falls back to the CPU.
+fenced by ``torch.cuda.synchronize()``, best of 3 windows.  ``profile_*``
+say where a batch's time goes (``torch.profiler``); ``kernel_cases`` holds
+each kernel and its plain version at the derive's shapes, for timing them
+alone.  They run only on a CUDA device: a measurement never falls back to
+the CPU.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import time
 
 import torch
 
-from ._device import require_cuda, u32
+from ._device import i64, require_cuda, u32
+from .cores import hash160, mt19937
+from .ecc import incremental as inc
+from .ecc import inv, ref, scalar, smul, smul_w8
 from .ecc.incremental import BaseStepper, build_offset_table, offset_table, sequential_core
 from .ecc.tiled import derive_hash160s_tiled, use_smul13
+from .kernels import Kernel
 
 METRIC = "seed_to_hash160_derivations_per_sec"
 SEQ_METRIC = "sequential_scan_derivations_per_sec"
@@ -121,7 +130,63 @@ def bench_sequential(batch: int = 1 << 19, iters: int = 20) -> dict:
 SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize")
 
 
-def _profile(step, dev, batch: int, iters: int) -> dict:
+def _device_events(prof, iters: int) -> dict:
+    """{kernel or copy name: (device ms per call, launches per call)} of a
+    ``torch.profiler`` run of ``iters`` calls."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:120]
+            ms, count = out.get(name, (0.0, 0.0))
+            out[name] = (ms + us / 1e3 / iters, count + e.count / iters)
+    return out
+
+
+def _profiled(fn, iters: int, expected):
+    """``torch.profiler`` over ``iters`` calls of ``fn`` ending in a
+    synchronize: (the profile, ``_device_events``, host wall ms per call).
+    Now and then CUPTI records a window only in part, or not at all (on the
+    H100: 1 of 20 launches of a kernel, or none).  Every kernel of a steady
+    loop runs a whole number of times a call, and each name in ``expected``
+    (``Kernel.entry`` of the kernels ``fn`` launches) at least once; a window
+    where one does not runs again, three times at most, and then this
+    raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    expected = set(expected)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        events = _device_events(prof, iters)
+        if (expected <= set(events)
+                and all(float(n).is_integer() for _, n in events.values())):
+            return prof, events, wall_ms
+    raise RuntimeError(f"torch.profiler recorded three windows of {iters} calls in part: "
+                       f"missing {sorted(expected - set(events))}, launches a call "
+                       f"{ {k: n for k, (_, n) in events.items()} }")
+
+
+def device_ms(fn, kernels, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per ``fn()`` call under ``torch.profiler``: the
+    sum of the kernels' own times, without the host's share that CUDA
+    events around a short launch take in.  ``kernels``: the ``Kernel``s
+    ``fn`` launches."""
+    for _ in range(warmup):
+        fn()
+    return sum(ms for ms, _ in _profiled(fn, iters, {k.entry for k in kernels})[1].values())
+
+
+def _profile(step, kernels, dev, batch: int, iters: int) -> dict:
     """Where a call's time goes on the card: device time per kernel
     (``torch.profiler``, CUPTI) and the device's idle share of the host
     wall clock, per batch, over ``iters`` calls after a warm-up.  The
@@ -133,10 +198,12 @@ def _profile(step, dev, batch: int, iters: int) -> dict:
     is done.  Where the calls return before their kernels end (the
     profile's ``host_waits_per_batch`` is 0), a host that issues slower
     than the device computes leaves a drain below one batch's device
-    time; a device that computes slower leaves the backlog to drain."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    time; a device that computes slower leaves the backlog to drain.
 
+    ``launches_per_batch`` counts every kernel and copy on the device,
+    ``glue_*`` those that are not the port's own kernels (torch's
+    elementwise ops between them).  ``kernels``: the ``Kernel``s a step
+    launches; a profile that misses one is taken again."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -146,32 +213,24 @@ def _profile(step, dev, batch: int, iters: int) -> dict:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     drain_ms = (time.perf_counter() - t1) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t2 = time.perf_counter()
-        for _ in range(iters):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t2) * 1e3 / iters
-    per_kernel, waits = {}, -1          # -1: the synchronize that closes the loop
-    for e in prof.key_averages():
-        if e.key in SYNC_CALLS:
-            waits += e.count
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:120]
-            per_kernel[name] = per_kernel.get(name, 0.0) + us / 1e3 / iters
-    busy = sum(per_kernel.values())
+    prof, events, wall_ms = _profiled(step, iters, {k.entry for k in kernels})
+    waits = sum(e.count for e in prof.key_averages() if e.key in SYNC_CALLS)
+    ours = {k.entry for k in Kernel.registry.values()}
+    glue = {name: v for name, v in events.items() if name not in ours}
+    busy = sum(ms for ms, _ in events.values())
     return {
         "batch": batch,
         "host_issue_ms_per_batch": (t1 - t0) * 1e3 / iters,
         "device_drain_ms": drain_ms,
-        "host_waits_per_batch": waits / iters,
+        "host_waits_per_batch": (waits - 1) / iters,   # less the closing synchronize
         "wall_ms_per_batch": wall_ms,
         "device_busy_ms_per_batch": busy,
-        "device_idle_share": 1.0 - busy / wall_ms if busy else None,
-        "kernels_ms_per_batch": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])),
+        "device_idle_share": 1.0 - busy / wall_ms,
+        "launches_per_batch": sum(n for _, n in events.values()),
+        "glue_launches_per_batch": sum(n for _, n in glue.values()),
+        "glue_ms_per_batch": sum(ms for ms, _ in glue.values()),
+        "kernels_ms_per_batch": {name: ms for name, (ms, _) in
+                                 sorted(events.items(), key=lambda kv: -kv[1][0])},
         "device": torch.cuda.get_device_name(dev),
     }
 
@@ -182,7 +241,9 @@ def profile_derive(batch: int = 1 << 19, iters: int = 10,
     ``bench_derive``)."""
     dev = require_cuda()
     smul13 = use_smul13(smul13)
-    out = _profile(_derive_step(dev, batch, smul13), dev, batch, iters)
+    kernels = (mt19937.KERNEL, smul.KERNEL if smul13 else smul_w8.KERNEL, inv.KERNEL,
+               hash160.KERNEL)
+    out = _profile(_derive_step(dev, batch, smul13), kernels, dev, batch, iters)
     out["smul"] = "smul" if smul13 else "smul_w8"
     return out
 
@@ -191,4 +252,54 @@ def profile_sequential(batch: int = 1 << 19, iters: int = 10) -> dict:
     """``_profile`` of the sequential-scan step (table built beforehand)."""
     dev = require_cuda()
     table = offset_table(batch, dev)
-    return _profile(_sequential_step(dev, batch, table), dev, batch, iters)
+    kernels = (inc.KERNEL, inv.KERNEL, hash160.KERNEL)
+    return _profile(_sequential_step(dev, batch, table), kernels, dev, batch, iters)
+
+
+def _cold(fn, inputs):
+    """A call of ``fn`` on each of ``inputs`` in turn, its last four results
+    kept alive: with four 16 MiB inputs and outputs in the ring, no call
+    finds its input or output in the 50 MB L2, so a kernel that only moves
+    bytes is timed against the HBM it is bound by."""
+    ring = collections.deque(maxlen=4)
+    turn = itertools.count()
+
+    def call():
+        ring.append(fn(inputs[next(turn) % len(inputs)]))
+
+    return call
+
+
+def kernel_cases(dev, seeds: torch.Tensor) -> dict:
+    """{kernel name: (kernel call, plain call)} on the inputs the derive
+    hands each kernel for the milksad ``seeds`` (N,): their raw and
+    normalized key words, the K3 outputs, their affine points, the offset
+    table and a base point.  K1 with normalize and K2 with its fragments, as
+    the derive runs them; the normalize kernel on four sets of raw words in
+    turn (``_cold``)."""
+    batch = seeds.shape[0]
+    raw = mt19937.milksad_key_words(seeds)
+    raws = [raw] + [mt19937.milksad_key_words(u32(i64(seeds) + i * batch)) for i in (1, 2, 3)]
+    norm = mt19937.milksad_key_words(seeds, normalize=True)
+    table, table_w8 = smul.table_on(str(dev)), smul_w8.table_on(str(dev))
+    outs = smul.scalar_mul(norm)
+    x, y = inv.affine(*outs)
+    offx, offy = inc.offset_table(batch, dev)
+    bx, by = ref.point_mul((1 << 48) - 1)
+    return {
+        "mt19937": (lambda: mt19937.milksad_key_words(seeds, normalize=True),
+                    lambda: mt19937.milksad_key_words_plain(seeds, normalize=True)),
+        "normalize": (_cold(scalar.normalize_words, raws),
+                      lambda: scalar.normalize_words_plain(raw)),
+        "smul": (lambda: smul.scalar_mul(norm), lambda: smul.scalar_mul_plain(norm, table)),
+        "smul_w8": (lambda: smul_w8.scalar_mul(norm),
+                    lambda: smul_w8.scalar_mul_plain(norm, table_w8)),
+        "seq_madd": (lambda: inc.seq_madd(offx, offy, bx, by),
+                     lambda: inc.seq_madd_plain(offx, offy, bx, by)),
+        "inv_affine": (lambda: inv.affine(*outs), lambda: inv.affine_plain(*outs)),
+        "hash160": (lambda: hash160.hash160s_and_fragments(x, y),
+                    lambda: hash160.hash160s_and_fragments_plain(x, y)),
+        # K1 without its epilogue, as the scan's keygen runs it
+        "mt19937 raw": (lambda: mt19937.milksad_key_words(seeds),
+                        lambda: mt19937.milksad_key_words_plain(seeds)),
+    }

@@ -4,7 +4,9 @@ Counterpart of ``vuke_tpu/cores/pallas_kernels.py::_hash160_kernel`` (K2):
 RIPEMD160(SHA256(02|03 || x)), one SHA-256 block, and
 RIPEMD160(SHA256(04 || x || y)), two blocks, with the padding of the
 fixed 33- and 65-byte messages written out.  The parity of y is the low
-bit of y's last big-endian word.
+bit of y's last big-endian word.  ``hash160s_and_fragments`` also returns
+the 8-byte match fragments of both digests, written by K2's epilogue on
+the card (``vuke_tpu/ecc/tiled.py:443-446`` in the JAX package).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from .._device import (MASK32, byteswap32, check_same_device, check_words, i64,
 from ..kernels import PTR, SIZE, Kernel
 
 KERNEL = Kernel(
-    "hash160", "vk_hash160", [PTR, PTR, PTR, PTR, SIZE],
+    "hash160", "vk_hash160", [PTR, PTR, PTR, PTR, PTR, SIZE],
     source="vuke_tpu_torch/csrc/hash160.cu",
     replaces="vuke_tpu/cores/pallas_kernels.py:146 _hash160_kernel")
 
@@ -139,21 +141,43 @@ def hash160s_plain(xw: torch.Tensor, yw: torch.Tensor):
     return u32(torch.stack(hc, dim=0)), u32(torch.stack(hu, dim=0))
 
 
-def hash160s(xw: torch.Tensor, yw: torch.Tensor):
-    """(8, N) uint32 BE words of canonical affine x, y -> (h160c, h160u),
-    each (5, N) uint32 LE digest words.
+def fragments(h160_t: torch.Tensor):
+    """(5, N) LE digest words -> the (hi, lo) uint32 (N,) pair of the first
+    8 hash160 bytes read big-endian: byteswap32 of words 0 and 1."""
+    return u32(byteswap32(i64(h160_t[0]))), u32(byteswap32(i64(h160_t[1])))
 
-    A CUDA tensor goes through the K2 kernel; a CPU tensor through the
-    plain version."""
+
+def hash160s_and_fragments_plain(xw: torch.Tensor, yw: torch.Tensor):
+    """Plain version of K2 with its fragment epilogue: ``hash160s_plain``,
+    then ``fragments`` of each digest."""
+    hc, hu = hash160s_plain(xw, yw)
+    return hc, hu, fragments(hc), fragments(hu)
+
+
+def hash160s_and_fragments(xw: torch.Tensor, yw: torch.Tensor):
+    """(8, N) uint32 BE words of canonical affine x, y -> (h160c, h160u,
+    (c_hi, c_lo), (u_hi, u_lo)): each digest (5, N) uint32 LE words, each
+    fragment word (N,) uint32 (``fragments``).
+
+    A CUDA tensor goes through the K2 kernel, the fragments written by its
+    epilogue; a CPU tensor through the plain version."""
     n = check_words(xw, 8, "xw")
     if check_words(yw, 8, "yw") != n:
         raise ValueError(f"yw: batch {yw.shape[1]} != {n}")
     dev = check_same_device(xw, yw)
     if dev.type == "cpu":
-        return hash160s_plain(xw, yw)
+        return hash160s_and_fragments_plain(xw, yw)
     hc = torch.empty((5, n), dtype=torch.uint32, device=dev)
     hu = torch.empty((5, n), dtype=torch.uint32, device=dev)
+    frag = torch.empty((4, n), dtype=torch.uint32, device=dev)
     if n:
-        KERNEL.launch(dev, xw.data_ptr(), yw.data_ptr(), hc.data_ptr(),
-                      hu.data_ptr(), n)
-    return hc, hu
+        KERNEL.launch(dev, xw.data_ptr(), yw.data_ptr(), hc.data_ptr(), hu.data_ptr(),
+                      frag.data_ptr(), n)
+    return hc, hu, (frag[0], frag[1]), (frag[2], frag[3])
+
+
+def hash160s(xw: torch.Tensor, yw: torch.Tensor):
+    """(8, N) uint32 BE words of canonical affine x, y -> (h160c, h160u),
+    each (5, N) uint32 LE digest words: ``hash160s_and_fragments`` without
+    the fragments."""
+    return hash160s_and_fragments(xw, yw)[:2]

@@ -6,13 +6,19 @@
 // with the padding of the fixed 33- and 65-byte messages written out as in
 // the TPU kernel.  The parity of y is the low bit of y's last BE word.
 //
-// Bound: 32-bit ALU (rotates, adds, logic): 3 SHA-256 and 2 RIPEMD-160
-// compressions per lane against 64 bytes read and 40 written.  Every loop
-// is fully unrolled so the message schedule, the state and the table
-// lookups (constant arrays indexed by compile-time round numbers) stay in
-// registers; loads and stores are coalesced (thread i <-> lane i).
+// Bound: the 32-bit ALU pipe (rotates as funnel shifts and logic; the adds
+// can go to either pipe): 3 SHA-256 and 2 RIPEMD-160 compressions per lane
+// against 64 bytes read and 56 written, counted operation by operation in
+// vuke_tpu_torch/kernels/work.py.  Every loop is fully unrolled so the
+// message schedule, the state and the table lookups (constant arrays indexed
+// by compile-time round numbers) stay in registers; loads and stores are
+// coalesced (thread i <-> lane i).
 //
-// Output: (5, N) little-endian digest words for each form.
+// Output: (5, N) little-endian digest words for each form and, from the
+// epilogue, the match fragments: (4, N) words c_hi, c_lo, u_hi, u_lo, the
+// first 8 bytes of each digest read big-endian (byteswaps of digest words 0
+// and 1, vuke_tpu/ecc/tiled.py:443-446), so the match needs no pass over
+// the digests.  16 bytes a lane, beside the 40 of the digests.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -132,7 +138,8 @@ __device__ __forceinline__ void sha256_iv(uint32_t s[8]) {
 
 __global__ void __launch_bounds__(128)
 hash160_kernel(const uint32_t* __restrict__ xw, const uint32_t* __restrict__ yw,
-               uint32_t* __restrict__ hc, uint32_t* __restrict__ hu, long long n) {
+               uint32_t* __restrict__ hc, uint32_t* __restrict__ hu,
+               uint32_t* __restrict__ frag, long long n) {
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     uint32_t x[8], y[8], w[16], s[8], h[5];
@@ -155,6 +162,8 @@ hash160_kernel(const uint32_t* __restrict__ xw, const uint32_t* __restrict__ yw,
     ripemd160_of_digest(s, h);
 #pragma unroll
     for (int j = 0; j < 5; j++) hc[j * n + i] = h[j];
+    frag[i] = bswap(h[0]);
+    frag[n + i] = bswap(h[1]);
 
     // uncompressed: 65 bytes = 04 || x || y, two blocks
     w[0] = (0x04u << 24) | (x[0] >> 8);
@@ -173,14 +182,18 @@ hash160_kernel(const uint32_t* __restrict__ xw, const uint32_t* __restrict__ yw,
     ripemd160_of_digest(s, h);
 #pragma unroll
     for (int j = 0; j < 5; j++) hu[j * n + i] = h[j];
+    frag[2 * n + i] = bswap(h[0]);
+    frag[3 * n + i] = bswap(h[1]);
 }
 
 }  // namespace
 
+// frag: (4, n) fragment words.
 extern "C" int vk_hash160(const uint32_t* xw, const uint32_t* yw, uint32_t* hc,
-                          uint32_t* hu, long long n, void* stream) {
+                          uint32_t* hu, uint32_t* frag, long long n, void* stream) {
     const int threads = 128;
     const long long blocks = (n + threads - 1) / threads;
-    hash160_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(xw, yw, hc, hu, n);
+    hash160_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(xw, yw, hc, hu,
+                                                                           frag, n);
     return VK_LAUNCH_STATUS();
 }

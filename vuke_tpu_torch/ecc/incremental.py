@@ -27,7 +27,7 @@ from ..cores import hash160
 from ..kernels import PTR, SIZE, Kernel
 from . import field as F
 from . import inv, ref
-from .tiled import affine_points, fragments, use_smul13
+from .tiled import affine_points, derive_dict, use_smul13
 
 KERNEL = Kernel(
     "seq_madd", "vk_seq_madd", [PTR, PTR, PTR, PTR, PTR, PTR, PTR, SIZE],
@@ -141,13 +141,12 @@ def sequential_core(bx: int, by: int, offx: torch.Tensor, offy: torch.Tensor, *,
                     plain: bool = False) -> dict:
     """Base point + offset table -> the derive dict of ``tiled._derive_core``
     (``h160c``/``h160u`` (N, 5) LE words, ``frag_c``/``frag_u`` (hi, lo)
-    pairs): lane i holds B + (i + 1) * G.  K5 -> K4 -> K2 -> fragments;
-    ``plain=True`` runs every stage's plain version on any device."""
+    pairs): lane i holds B + (i + 1) * G.  K5 -> K4 -> K2 (fragments in its
+    epilogue), no torch op between them; ``plain=True`` runs every stage's
+    plain version on any device."""
     if plain:
-        madd, affine, hash160s = seq_madd_plain, inv.affine_plain, hash160.hash160s_plain
+        madd, affine, digests = (seq_madd_plain, inv.affine_plain,
+                                 hash160.hash160s_and_fragments_plain)
     else:
-        madd, affine, hash160s = seq_madd, inv.affine, hash160.hash160s
-    x, y = affine(*madd(offx, offy, bx, by))
-    hc, hu = hash160s(x, y)
-    return {"h160c": hc.T, "h160u": hu.T,
-            "frag_c": fragments(hc), "frag_u": fragments(hu)}
+        madd, affine, digests = seq_madd, inv.affine, hash160.hash160s_and_fragments
+    return derive_dict(*digests(*affine(*madd(offx, offy, bx, by))))

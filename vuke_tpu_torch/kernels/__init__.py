@@ -158,9 +158,12 @@ class Kernel:
     """One CUDA entry point of the library and its launch count.
 
     ``launches`` goes up by one each time the kernel is launched, and
-    nowhere else, so a run can show that its main path went through it."""
+    nowhere else, so a run can show that its main path went through it.
+    ``entry`` is the name of the ``__global__`` function it launches;
+    ``Kernel.registry`` holds every kernel by name."""
 
     route = "cuda"
+    registry: dict[str, "Kernel"] = {}
 
     def __init__(self, name: str, symbol: str, argtypes, source: str,
                  replaces: str):
@@ -169,7 +172,9 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.source = source
         self.replaces = replaces
+        self.entry = f"{name}_kernel"
         self.launches = 0
+        Kernel.registry[name] = self
 
     def launch(self, device: torch.device, *args) -> None:
         """Call the C entry point on ``device``'s current stream; raise on a
