@@ -6,9 +6,12 @@ Drives vuke_tpu_torch's scan paths on the card, the milksad seed ->
 hash160 -> target match (K1 with normalize in its epilogue -> K3 -> K4 ->
 K2 with the match fragments in its epilogue; the scan's superbatches
 normalize K1's raw words with the normalize kernel), the sequential
-direct:be scan (K5 -> K4 -> K2), and both again with the byte-window
-scalar multiplication (``VUKE_TPU_SMUL13=0``: K6 in place of K3), and
-fails (non-zero exit, no result line) unless every phase passes:
+direct:be scan (K5 -> K4 -> K2), both again with the byte-window scalar
+multiplication (``VUKE_TPU_SMUL13=0``: K6 in place of K3), and the
+transforms whose keys come from the three keygen kernels (keygen_hash,
+keygen_prng, keygen_chain: one launch a superbatch for all of a
+transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
+(non-zero exit, no result line) unless every phase passes:
 
 1. environment: torch / CUDA / nvcc versions, capability (9, 0), the
    card's name, power limit and maximum SM clock;
@@ -25,7 +28,11 @@ fails (non-zero exit, no result line) unless every phase passes:
    the port's bignum secp256k1 and encodings, hashlib): K1 raw and with
    normalize, K2's digests and its fragments; the normalize
    kernel on every ``scalar_edge`` word and 2^19 random ones, lane-exact
-   and the edge words against Python's k mod n (0 -> 1);
+   and the edge words against Python's k mod n (0 -> 1); the three keygen
+   kernels in every mode and variant on the edge seeds (decimal strings of
+   1 to 20 bytes) and random ones, lane-exact, and 64 lanes of each hash
+   mode against hashlib; then every mode and variant again at the scans'
+   batch, 2^19 seeds above and below 2^32, lane-exact;
 4. the milksad derive at batch 2^19 through the kernels against the plain
    path on the card (lane-exact) and 256 sampled lanes against the host;
    4b. the sequential derive at batch 2^19 across 2^63 against the K3 path
@@ -46,6 +53,16 @@ fails (non-zero exit, no result line) unless every phase passes:
    5c. both scans again with ``VUKE_TPU_SMUL13=0`` set around the command:
    milksad over 2^22 seeds and direct:be over [1, 2^21], with K6 launched
    in place of K3 (also for the offset table) and K3 never;
+   5d. planted scans of the keygen kernels' transforms: sha256 over 2^22
+   seeds (a key in the string slot, then one in the LE slot), lcg (its
+   four variants), mt64 (seeds above 2^32) and sha256_chain over 2^19 seeds
+   (a key at depth 7 of the 4-byte half); each keygen kernel once a
+   superbatch, normalize, K3, K4 and K2 once a slot a superbatch;
+   5e. direct:be with ``VUKE_TPU_SEQUENTIAL=0`` over two superbatches that
+   would be sequential: K5 never, the keygen and K3 once each;
+   every scan prints exactly its hit on stdout, with the reference's
+   ``Source:`` and ``Transform:`` lines, and ``Scanning...`` and ``Done.
+   Inputs: N, Keys: K, Matches: 1`` on stderr;
 6. the derive rates (seed_to_hash160_derivations_per_sec through K3 and
    through K6, sequential_scan_derivations_per_sec), each derive's profile
    (device launches a batch, torch glue, device busy, the host's issue
@@ -53,7 +70,11 @@ fails (non-zero exit, no result line) unless every phase passes:
    ``torch.profiler``; the normalize kernel with its input and output out
    of L2) against its plain version's and its bound at the path's shapes:
    the larger of its bytes over the HBM rate and the operations its
-   function needs (``kernels/work.py``) over the issue pipes' rate.
+   function needs (``kernels/work.py``) over the issue pipes' rate; the
+   keygen kernels in the modes the scans run (sha256, the four LCGs,
+   every sha256_chain variant); then the scan rate through the pipelined
+   driver (``benchmark.bench_scan``) of milksad, direct:be and sha256
+   against 4096 and 2^20 fragments.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
@@ -80,7 +101,8 @@ from vuke_tpu_torch._device import require_cuda
 from vuke_tpu_torch.benchmark import (bench_derive, bench_sequential, device_ms,
                                       kernel_cases, profile_derive, profile_sequential,
                                       time_cuda)
-from vuke_tpu_torch.cores import hash160, mt19937
+from vuke_tpu_torch.benchmark import bench_scan
+from vuke_tpu_torch.cores import hash160, keygen, lcg, mt19937, sha256_chain
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
 from vuke_tpu_torch.ecc import inv, pubkey, ref, scalar, smul, smul_w8, tiled
@@ -93,7 +115,13 @@ SEQ_SCAN_KEYS = 1 << 24
 KERNELS = {"mt19937": mt19937.KERNEL, "normalize": scalar.KERNEL, "smul": smul.KERNEL,
            "smul_w8": smul_w8.KERNEL, "seq_madd": inc.KERNEL, "inv_affine": inv.KERNEL,
            "hash160": hash160.KERNEL}
+KEYGEN = {"keygen_hash": keygen.HASH_KERNEL, "keygen_prng": keygen.PRNG_KERNEL,
+          "keygen_chain": keygen.CHAIN_KERNEL}
+ALL_KERNELS = KERNELS | KEYGEN
 MILKSAD_PATH = ("mt19937", "smul", "inv_affine", "hash160")
+SLOT_PATH = ("normalize", "smul", "inv_affine", "hash160")
+KEYGEN_MODE = {"keygen_hash": "sha256", "keygen_prng": "lcg, four variants",
+               "keygen_chain": "sha256_chain, four variants, depth 10"}
 
 # Least time for each kernel's work at N lanes: the larger of its bytes
 # over the HBM rate and the operations its function needs per lane
@@ -111,6 +139,10 @@ BYTES_PER_LANE = {
     "seq_madd": 192,     # 2 x 32 B offset in, 4 x 32 B out
     "inv_affine": 192,   # 4 x 32 B in, 2 x 32 B out
     "hash160": 120,      # 2 x 32 B in, 2 x 20 B digests and 16 B of fragments out
+    # the keygens in the scans' modes: the seed words they read, 32 B a slot out
+    "keygen_hash": 8 + 3 * 32,      # sha256: hi and lo in, 3 slots
+    "keygen_prng": 4 + 4 * 32,      # lcg: lo alone in, 4 variants
+    "keygen_chain": 8 + 80 * 32,    # sha256_chain: hi and lo in, 4 variants x depth 10, twice
 }
 # The diagnostic beside the bound: each kernel's SASS (phase 2), every
 # instruction weighted by the trip counts of the loops around it, listed
@@ -176,6 +208,61 @@ def ripemd160_source() -> str:
 def host_milksad_key(seed: int) -> bytes:
     """numpy's MT19937 (init_genrand seeding): 32 key bytes of a seed."""
     return np.random.RandomState(seed).bytes(32)
+
+
+def sha256(data: bytes) -> bytes:
+    return hashlib.sha256(data).digest()
+
+
+def host_hash_keys(mode: str, seed: int) -> list:
+    """The 32-byte keys of keygen_hash's ``mode`` for a u64 seed, slot by
+    slot, from hashlib and Python's integers."""
+    text, be, le = str(seed).encode(), seed.to_bytes(8, "big"), seed.to_bytes(8, "little")
+    if mode == "direct":
+        return [seed.to_bytes(32, "big"), le + bytes(24), text.ljust(32, b"\0")]
+    if mode == "md5":
+        d = hashlib.md5(text).digest()
+        return [d + d]
+    keys = [sha256(text), sha256(be), sha256(le)]
+    return [sha256(k) for k in keys] if mode == "double_sha256" else keys
+
+
+def host_lcg_key(seed: int, v, big_endian: bool = True) -> bytes:
+    """8 outputs of the LCG variant ``v`` from a u32 seed, 4 bytes each."""
+    out = b""
+    for _ in range(8):
+        seed = (v.a * seed + v.c) % v.m
+        out += seed.to_bytes(4, "big" if big_endian else "little")
+    return out
+
+
+def host_mt64_key(seed: int) -> bytes:
+    """MT19937-64 (init_genrand64, then the twist of the first four state
+    words): its first 4 tempered outputs, serialized little-endian."""
+    m64 = (1 << 64) - 1
+    mt = [seed & m64]
+    for i in range(1, 312):
+        mt.append((6364136223846793005 * (mt[-1] ^ (mt[-1] >> 62)) + i) & m64)
+    out = b""
+    for i in range(4):
+        y = (mt[i] & 0xFFFFFFFF80000000) | (mt[i + 1] & 0x7FFFFFFF)
+        x = mt[i + 156] ^ (y >> 1) ^ (0xB5026F5AA96619E9 if y & 1 else 0)
+        x ^= (x >> 29) & 0x5555555555555555
+        x ^= (x << 17) & 0x71D67FFFEDA60000
+        x ^= (x << 37) & 0xFFF7EEE000000000
+        x ^= x >> 43
+        out += x.to_bytes(8, "little")
+    return out
+
+
+def host_chain_key(message: bytes, variant: str, d: int) -> bytes:
+    """Key ``d`` of the sha256_chain ``variant`` over the seed's bytes."""
+    if variant == "iterated":
+        key = sha256(message)
+        for _ in range(d):
+            key = sha256(key)
+        return key
+    return sha256(message + sha256_chain.suffix(variant, d))
 
 
 def host_h160s(k: int):
@@ -610,7 +697,7 @@ def phase_derive(dev, rng):
 
 
 def launch_counts() -> dict:
-    return {name: kern.launches for name, kern in KERNELS.items()}
+    return {name: kern.launches for name, kern in ALL_KERNELS.items()}
 
 
 def phase_derive_k6(dev, rng):
@@ -676,48 +763,55 @@ def phase_pubkey(dev, rng):
 
 
 @contextlib.contextmanager
-def smul13_off():
-    """``VUKE_TPU_SMUL13=0`` for the block; the variable alone is restored."""
-    old = os.environ.get("VUKE_TPU_SMUL13")
-    os.environ["VUKE_TPU_SMUL13"] = "0"
+def env_set(name: str, value: str):
+    """``name=value`` in the environment for the block; the variable alone
+    is restored."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["VUKE_TPU_SMUL13"]
+            del os.environ[name]
         else:
-            os.environ["VUKE_TPU_SMUL13"] = old
+            os.environ[name] = old
 
 
-def run_scan(transform: str, start: int, end: int, planted: int, target: str,
-             decoys: list, keys: int, display: str):
+
+def run_scan(transform: str, start: int, end: int, source: str, target: str, decoys: list,
+             keys: int, display: str, key_hex: str | None = None):
     """One ``scan`` through the command line against the decoys plus
     ``target``, with every launch count set to 0 just before and read just
-    after.  It must print exactly the planted hit."""
+    after.  Its stdout must be exactly one hit block, for ``source``,
+    ``display`` and ``target`` (and the private key ``key_hex`` where
+    given), and its stderr the reference's two lines.  Returns the launch
+    counts and the host's seconds."""
     path = kernels.BUILD_DIR / "smoke_targets.txt"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text("\n".join(decoys[:2048] + [target] + decoys[2048:]) + "\n")
-    for kern in KERNELS.values():
+    for kern in ALL_KERNELS.values():
         kern.launches = 0
-    out = io.StringIO()
+    out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(["scan", "--transform", transform, "--targets", str(path),
                        "--batch", str(BATCH), "range", "--start", str(start),
                        "--end", str(end)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = launch_counts()
-    text = out.getvalue()
-    summary = json.loads(text.strip().splitlines()[-1])
-    if rc != 0 or summary["matches_found"] != 1 or text.count("========== HIT") != 1:
-        raise AssertionError(f"scan {transform}: expected exactly one hit, got {summary}\n{text}")
-    if (f"Source: {planted}\nTransform: {display}\n" not in text
-            or f"Matched: {target} (p2pkh_compressed)" not in text):
-        raise AssertionError(f"scan {transform}: the hit is not {planted} / {target}:\n{text}")
-    if summary["keys_generated"] != keys:
-        raise AssertionError(f"scan {transform}: {summary['keys_generated']} keys, expected {keys}")
-    return summary, launches, secs
+    text, log = out.getvalue(), err.getvalue()
+    done = f"Done. Inputs: {end - start + 1}, Keys: {keys}, Matches: 1"
+    if (rc != 0 or log.splitlines() != ["Scanning...", done] or text.count("========== HIT") != 1
+            or not text.startswith("\n========== HIT ==========\n")
+            or not text.endswith("\n=========================\n")):
+        raise AssertionError(f"scan {transform}: expected exactly one hit block on stdout and "
+                             f"{done!r} on stderr, got rc {rc}\n{text}\n{log}")
+    if (f"Source: {source}\nTransform: {display}\n" not in text
+            or f"Matched: {target} (p2pkh_compressed)" not in text
+            or (key_hex is not None and f"Private Key: {key_hex}\n" not in text)):
+        raise AssertionError(f"scan {transform}: the hit is not {source} / {target}:\n{text}")
+    return launches, secs
 
 
 def check_launches(what: str, launches: dict, want: dict):
@@ -735,15 +829,14 @@ def phase_scan(dev, rng, decoys) -> dict:
     planted = int(rng.integers(start, end + 1))
     k = int.from_bytes(host_milksad_key(planted), "big") % N or 1
     target = p2pkh_address(host_h160s(k)[0])
-    summary, launches, secs = run_scan("milksad", start, end, planted, target, decoys,
-                                       SCAN_SEEDS, "milksad")
+    launches, secs = run_scan("milksad", start, end, str(planted), target, decoys,
+                              SCAN_SEEDS, "milksad")
     check_launches("milksad scan", launches,
                    {name: None for name in MILKSAD_PATH}
                    | {"normalize": SCAN_SEEDS // BATCH, "seq_madd": 0, "smul_w8": 0})
     say(f"[5 scan] milksad range [{start}, {end}] ({SCAN_SEEDS} seeds, batch {BATCH}) vs "
         f"4096 decoys + 1 planted: exactly 1 hit, seed {planted} -> {target}; "
-        f"{summary['candidates']} device candidates; {secs:.2f} s host wall clock; "
-        f"main-path launches {launches}")
+        f"{secs:.2f} s host wall clock; main-path launches {launches}")
     return launches
 
 
@@ -758,8 +851,8 @@ def phase_seq_scan(dev, rng, decoys) -> list:
     planted = start + int(rng.integers(0, SEQ_SCAN_KEYS))
     target = p2pkh_address(host_h160s(planted)[0])
     batches = SEQ_SCAN_KEYS // BATCH
-    summary, launches, secs = run_scan("direct:be", start, end, planted, target, decoys,
-                                       SEQ_SCAN_KEYS, "direct")
+    launches, secs = run_scan("direct:be", start, end, str(planted), target, decoys,
+                              SEQ_SCAN_KEYS, "direct")
     check_launches("direct:be scan across 2^63", launches,
                    {"seq_madd": batches, "inv_affine": batches, "hash160": batches,
                     "smul": 0, "smul_w8": 0, "mt19937": 0, "normalize": 0})
@@ -767,15 +860,14 @@ def phase_seq_scan(dev, rng, decoys) -> list:
     say(f"[5b direct:be scan] range [2^63 - {SEQ_SCAN_KEYS // 2}, 2^63 + {SEQ_SCAN_KEYS // 2}) "
         f"({SEQ_SCAN_KEYS} keys, batch "
         f"{BATCH}) vs 4096 decoys + 1 planted: exactly 1 hit, key {planted} -> {target}, "
-        f"'Transform: direct'; {summary['candidates']} device candidates; {secs:.2f} s host "
-        f"wall clock; launches {launches}")
+        f"'Transform: direct'; {secs:.2f} s host wall clock; launches {launches}")
 
     end = 4 * BATCH
     target = p2pkh_address(host_h160s(700)[0])
-    summary, launches, secs = run_scan("direct:be", 1, end, 700, target, decoys, end, "direct")
+    launches, secs = run_scan("direct:be", 1, end, "700", target, decoys, end, "direct")
     check_launches("direct:be scan of [1, 2^21]", launches,
                    {"smul": 2, "smul_w8": 0, "seq_madd": 2, "inv_affine": 4, "hash160": 4,
-                    "mt19937": 0, "normalize": 2})
+                    "mt19937": 0, "normalize": 2, "keygen_hash": 2})
     runs.append(launches)
     say(f"[5b direct:be scan] range [1, {end}] vs 4096 decoys + key 700: exactly 1 hit; "
         f"superbatches from 1 and {BATCH + 1} took K3, from {2 * BATCH + 1} and "
@@ -797,32 +889,204 @@ def phase_scan_k6(dev, rng, decoys) -> list:
     k = int.from_bytes(host_milksad_key(planted), "big") % N or 1
     target = p2pkh_address(host_h160s(k)[0])
     batches = SCAN_SEEDS // BATCH
-    with smul13_off():
-        summary, launches, secs = run_scan("milksad", start, end, planted, target, decoys,
-                                           SCAN_SEEDS, "milksad")
+    with env_set("VUKE_TPU_SMUL13", "0"):
+        launches, secs = run_scan("milksad", start, end, str(planted), target, decoys,
+                                  SCAN_SEEDS, "milksad")
     check_launches("milksad scan, VUKE_TPU_SMUL13=0", launches,
                    {"smul_w8": batches, "smul": 0, "mt19937": batches, "inv_affine": batches,
                     "hash160": batches, "seq_madd": 0, "normalize": batches})
     runs.append(launches)
     say(f"[5c scan, VUKE_TPU_SMUL13=0] milksad range [{start}, {end}] ({SCAN_SEEDS} seeds, "
         f"batch {BATCH}) vs 4096 decoys + 1 planted: exactly 1 hit, seed {planted} -> "
-        f"{target}; {summary['candidates']} device candidates; {secs:.2f} s host wall clock; "
-        f"launches {launches}")
+        f"{target}; {secs:.2f} s host wall clock; launches {launches}")
 
     end = 4 * BATCH
     target = p2pkh_address(host_h160s(700)[0])
-    with smul13_off():
-        summary, launches, secs = run_scan("direct:be", 1, end, 700, target, decoys, end,
-                                           "direct")
+    with env_set("VUKE_TPU_SMUL13", "0"):
+        launches, secs = run_scan("direct:be", 1, end, "700", target, decoys, end, "direct")
     check_launches("direct:be scan of [1, 2^21], VUKE_TPU_SMUL13=0", launches,
                    {"smul_w8": 3, "smul": 0, "seq_madd": 2, "inv_affine": 5, "hash160": 4,
-                    "mt19937": 0, "normalize": 2})
+                    "mt19937": 0, "normalize": 2, "keygen_hash": 2})
     runs.append(launches)
     say(f"[5c direct:be scan, VUKE_TPU_SMUL13=0] range [1, {end}] vs 4096 decoys + key 700: "
         f"exactly 1 hit; superbatches from 1 and {BATCH + 1} took K6, the offset table was "
         f"built with K6, from {2 * BATCH + 1} and {3 * BATCH + 1} took K5; {secs:.2f} s "
         f"host wall clock; launches {launches}")
     return runs
+
+
+def keygen_seeds(rng, n: int) -> list:
+    """u64 seeds: the edges (0, 9, 10, 2^31 - 2 .. 2^31, 2^32 - 1, 2^32,
+    10^19, 2^64 - 1, each power of ten and the number below it: decimal
+    strings of 1 to 20 bytes), then random ones below 2^64 and below 2^32
+    in turn."""
+    edge = sorted({0, 9, 10, (1 << 31) - 2, (1 << 31) - 1, 1 << 31, (1 << 32) - 1, 1 << 32,
+                   10 ** 19, (1 << 64) - 1} | {10 ** k for k in range(20)}
+                  | {10 ** k - 1 for k in range(2, 20)})
+    rand = [int(v) for v in rng.integers(0, 1 << 64, n - len(edge), dtype=np.uint64)]
+    return edge + [v if i % 2 else v & 0xFFFFFFFF for i, v in enumerate(rand)]
+
+
+def seed_words(seeds: list, dev):
+    """u64 seeds -> their (hi, lo) (N,) uint32 words on ``dev``."""
+    arr = np.array(seeds, dtype=np.uint64)
+    return (torch.from_numpy((arr >> np.uint64(32)).astype(np.uint32)).to(dev),
+            torch.from_numpy((arr & np.uint64(0xFFFFFFFF)).astype(np.uint32)).to(dev))
+
+
+def keygen_modes():
+    """(kernel name, label, keygen arguments after (hi, lo)) of every mode
+    and variant of the three keygen kernels."""
+    out = [("keygen_hash", mode, (mode,)) for mode in keygen.HASH_MODES]
+    out += [("keygen_prng", f"lcg {v} {'be' if be else 'le'}", ("lcg", v, be))
+            for v in range(-1, 4) for be in (True, False)]
+    out += [("keygen_prng", f"xorshift {v}", ("xorshift", v)) for v in range(-1, 4)]
+    out += [("keygen_prng", "mt64", ("mt64",))]
+    out += [("keygen_chain", f"sha256_chain {v}", (v,)) for v in range(-1, 4)]
+    return out
+
+
+def keygen_against_plain(hi, lo, errs: dict, keep: dict | None = None):
+    """Every mode and variant of the three keygen kernels on the seeds (hi,
+    lo) against their plain versions, lane-exact, each call one launch;
+    the max abs error of each kernel goes into ``errs``, each mode's keys
+    into ``keep`` (on the host) when it is given."""
+    fns = {"keygen_hash": (keygen.keygen_hash, keygen.keygen_hash_plain),
+           "keygen_prng": (keygen.keygen_prng, keygen.keygen_prng_plain),
+           "keygen_chain": (keygen.keygen_chain, keygen.keygen_chain_plain)}
+    for name, label, args in keygen_modes():
+        kern, plain = fns[name]
+        before = KEYGEN[name].launches
+        keys = kern(hi, lo, *args)
+        torch.cuda.synchronize()
+        if KEYGEN[name].launches != before + 1:
+            raise AssertionError(f"{name} {label}: {KEYGEN[name].launches - before} launches")
+        errs[name] = max(errs[name], exact_err(f"{name} {label} N={hi.numel()}", [keys],
+                                               [plain(hi, lo, *args)]))
+        if keep is not None:
+            keep[label] = keys.cpu()
+        del keys
+
+
+def phase_keygen(dev, rng) -> dict:
+    """The three keygen kernels against their plain versions on the card,
+    in every mode and variant, lane-exact (``keygen_against_plain``): at
+    N_KERNEL seeds (``keygen_seeds``), whose 64 lanes (the edges first) are
+    then held against the host (the hash modes against hashlib, the LCGs
+    and MT19937-64 against Python's integers, the chains against hashlib);
+    then at the scans' BATCH, on fresh ``keygen_seeds``."""
+    seeds = keygen_seeds(rng, N_KERNEL)
+    hi, lo = seed_words(seeds, dev)
+    errs, got = {name: 0 for name in KEYGEN}, {}
+    keygen_against_plain(hi, lo, errs, got)
+    lanes = list(range(40)) + rng.choice(np.arange(40, N_KERNEL), 24, replace=False).tolist()
+
+    def key(label, slot, j):
+        return lane_int_be(got[label][slot], j).to_bytes(32, "big")
+
+    for j in lanes:
+        seed = seeds[j]
+        for mode in keygen.HASH_MODES:
+            for slot, want in enumerate(host_hash_keys(mode, seed)):
+                if key(mode, slot, j) != want:
+                    raise AssertionError(f"keygen_hash {mode} slot {slot} seed {seed} "
+                                         f"differs from hashlib")
+        for v, variant in enumerate(lcg.ALL_VARIANTS):
+            for be in (True, False):
+                if key(f"lcg -1 {'be' if be else 'le'}", v, j) != host_lcg_key(
+                        seed & 0xFFFFFFFF, variant, be):
+                    raise AssertionError(f"keygen_prng lcg {variant.name} seed {seed} differs")
+        if key("mt64", 0, j) != host_mt64_key(seed):
+            raise AssertionError(f"keygen_prng mt64 seed {seed} differs from the host")
+        messages = (str(seed).encode(), (seed & 0xFFFFFFFF).to_bytes(4, "big"))
+        for half, message in enumerate(messages):
+            for k, variant in enumerate(sha256_chain.VARIANTS):
+                for d in range(sha256_chain.DEFAULT_CHAIN_DEPTH):
+                    slot = (half * 4 + k) * sha256_chain.DEFAULT_CHAIN_DEPTH + d
+                    if key("sha256_chain -1", slot, j) != host_chain_key(message, variant, d):
+                        raise AssertionError(f"keygen_chain {variant} {d} seed {seed} differs")
+    say(f"[3 keygen] N={N_KERNEL} (0, 9, 10, 2^31-2..2^31, 2^32-1, 2^32, 10^k and 10^k-1, "
+        f"10^19, 2^64-1, random): keygen_hash (direct, sha256, double_sha256, md5), "
+        f"keygen_prng (lcg each variant and all, be and le; xorshift each and all; mt64), "
+        f"keygen_chain (each variant and all) == plain lane-exact (max abs err 0), one "
+        f"launch a call; 64 lanes == hashlib (hash modes, chains) and Python integers "
+        f"(LCGs, MT19937-64)")
+    del got
+    big = keygen_seeds(rng, BATCH)
+    above = sum(v >> 32 != 0 for v in big)
+    hi, lo = seed_words(big, dev)
+    t0 = time.perf_counter()
+    keygen_against_plain(hi, lo, errs)
+    say(f"[3 keygen] N={BATCH}, the scans' batch ({above} seeds above 2^32, "
+        f"{BATCH - above} below): every mode and variant of the three keygen kernels == "
+        f"plain lane-exact (max abs err 0), one launch a call; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def phase_keygen_scans(dev, rng, decoys) -> list:
+    """Planted scans of the keygen kernels' transforms through ``scan``: each
+    finds exactly its hit, under the reference's ``Source:`` label, and each
+    superbatch launches its keygen kernel once and normalize, K3, K4 and K2
+    once a slot."""
+    runs = []
+
+    def scan(transform, kern, start, seeds, slots, label, key, note):
+        k = int.from_bytes(key, "big") % N or 1
+        target = p2pkh_address(host_h160s(k)[0])
+        batches = seeds // BATCH
+        launches, secs = run_scan(transform, start, start + seeds - 1, label, target, decoys,
+                                  seeds * slots, transform, key_hex=f"{k:064x}")
+        want = {name: batches * slots for name in SLOT_PATH}
+        want |= {kern: batches, "mt19937": 0, "seq_madd": 0, "smul_w8": 0}
+        want |= {other: 0 for other in KEYGEN if other != kern}
+        check_launches(f"{transform} scan", launches, want)
+        runs.append(launches)
+        say(f"[5d {transform} scan] range [{start}, {start + seeds - 1}] ({seeds} seeds, "
+            f"{slots} slots, batch {BATCH}) vs 4096 decoys + 1 planted: exactly 1 hit, "
+            f"'Source: {label}', 'Transform: {transform}' ({note}); {secs:.2f} s host wall "
+            f"clock; launches {launches}")
+
+    start = 7_000_000_000
+    planted = start + int(rng.integers(0, SCAN_SEEDS))
+    scan("sha256", "keygen_hash", start, SCAN_SEEDS, 3, str(planted),
+         host_hash_keys("sha256", planted)[0], "the string slot: SHA-256 of the decimal string")
+    planted = start + int(rng.integers(0, SCAN_SEEDS))
+    scan("sha256", "keygen_hash", start, SCAN_SEEDS, 3, str(planted),
+         host_hash_keys("sha256", planted)[2], "the LE slot: SHA-256 of the 8 LE bytes")
+    start = 1_500_000_000
+    planted = start + int(rng.integers(0, 4 * BATCH))
+    scan("lcg", "keygen_prng", start, 4 * BATCH, 4, f"{planted}:msvc",
+         host_lcg_key(planted, lcg.VARIANTS_BY_NAME["msvc"]), "the msvc slot of four")
+    start = 5 << 40
+    planted = start + int(rng.integers(0, 4 * BATCH))
+    scan("mt64", "keygen_prng", start, 4 * BATCH, 1, str(planted), host_mt64_key(planted),
+         "seeds above 2^32")
+    start = 3_000_000_000
+    planted = start + int(rng.integers(0, BATCH))
+    scan("sha256_chain", "keygen_chain", start, BATCH, 80, f"{planted}[indexed:le:7]",
+         host_chain_key(planted.to_bytes(4, "big"), "indexed:le", 7),
+         "depth 7 of the 4-byte half")
+    return runs
+
+
+def phase_sequential_off(dev, rng, decoys) -> dict:
+    """direct:be with ``VUKE_TPU_SEQUENTIAL=0`` around the command, over two
+    superbatches from 2^48 that would take K5: the keygen and K3 path in
+    both, K5 never."""
+    start = 1 << 48
+    planted = start + int(rng.integers(0, 2 * BATCH))
+    target = p2pkh_address(host_h160s(planted)[0])
+    with env_set("VUKE_TPU_SEQUENTIAL", "0"):
+        launches, secs = run_scan("direct:be", start, start + 2 * BATCH - 1, str(planted),
+                                  target, decoys, 2 * BATCH, "direct")
+    check_launches("direct:be scan, VUKE_TPU_SEQUENTIAL=0", launches,
+                   {"seq_madd": 0, "keygen_hash": 2, "normalize": 2, "smul": 2,
+                    "inv_affine": 2, "hash160": 2})
+    say(f"[5e direct:be scan, VUKE_TPU_SEQUENTIAL=0] range [2^48, 2^48 + {2 * BATCH}) vs "
+        f"4096 decoys + key {planted}: exactly 1 hit; both superbatches took keygen_hash + "
+        f"K3, K5 never; {secs:.2f} s host wall clock; launches {launches}")
+    return launches
 
 
 def work_per_lane(name: str, k6_additions: float) -> work.Ops:
@@ -919,7 +1183,48 @@ def phase_rate(dev, rng, card: str, int_ops_per_s: float, pipes: dict) -> dict:
             f"time); needs a lane {ops.mul:.0f} multiplies, {ops.alu:.0f} ALU, {ops.add:.0f} "
             f"adds; SASS issues a lane {p.alu / lanes:.0f} ALU, {p.fma / lanes:.0f} FMA "
             f"2-cycle units, {p.issued / lanes:.0f} in all{note} [{card}]")
+    digits = float(np.mean([len(str(v)) for v in seeds.cpu().tolist()]))
+    for name in KEYGEN:
+        kern, plain = cases[name]
+        ms = time_cuda(kern, iters=20, warmup=3)
+        dev_ms = device_ms(kern, [KEYGEN[name]], iters=20)
+        plain_ms = time_cuda(plain, iters=2, warmup=1)
+        ops = keygen_work(name, digits)
+        bound_ms, bound_by, limit = bound(name, BATCH, int_ops_per_s, ops)
+        times[name] = (ms, plain_ms, bound_ms, bound_by)
+        say(f"[6 time] {name} ({KEYGEN_MODE[name]}) at N={BATCH}: kernel {ms:.4f} ms (CUDA "
+            f"events), {dev_ms:.4f} ms device (profiler), plain {plain_ms:.2f} ms "
+            f"({plain_ms / ms:.1f}x), bound {bound_ms:.4f} ms by {limit} "
+            f"({100 * bound_ms / dev_ms:.1f}% of the device time); needs a lane "
+            f"{ops.mul:.0f} multiplies, {ops.alu:.0f} ALU, {ops.add:.0f} adds (seeds of "
+            f"{digits:.3f} digits on average) [{card}]")
     return times
+
+
+def keygen_work(name: str, digits: float) -> work.Ops:
+    """The operations a lane of ``name`` needs in ``KEYGEN_MODE``'s mode, for
+    seeds of ``digits`` decimal digits on average."""
+    return {"keygen_hash": work.keygen_hash("sha256", digits),
+            "keygen_prng": work.keygen_prng("lcg"),
+            "keygen_chain": work.keygen_chain(digits)}[name]
+
+
+def phase_scan_rates(card: str):
+    """Keys/s of whole scans through the pipelined driver (``bench_scan``),
+    with where a superbatch's time goes."""
+    for transform, pool in (("milksad", 4096), ("direct:be", 4096), ("sha256", 4096),
+                            ("sha256", 1 << 20)):
+        r = bench_scan(transform, pool_size=pool, batch=BATCH)
+        kern = ", ".join(f"{k} {v:.4f}" for k, v in r["kernels_ms_per_superbatch"].items())
+        say(f"[6 scan rate] {transform} vs {pool} fragments: {r['keys_per_sec']:.0f} keys/s "
+            f"({r['inputs_per_sec']:.0f} seeds/s, {r['slots']} slots) over "
+            f"{r['superbatches']} superbatches of {BATCH} from {r['start']}, "
+            f"{r['ms_per_superbatch']:.4f} ms a superbatch on the host's clock; host issue "
+            f"{r['host_issue_ms_per_superbatch']:.4f} ms, device busy "
+            f"{r['device_busy_ms_per_superbatch']:.4f} ms, wall under the profiler "
+            f"{r['wall_ms_per_superbatch']:.4f} ms, idle share {r['device_idle_share']:.3f}, "
+            f"{r['launches_per_superbatch']:g} launches a superbatch "
+            f"({r['glue_launches_per_superbatch']:g} torch glue); device ms: {kern} [{card}]")
 
 
 def main() -> int:
@@ -928,20 +1233,23 @@ def main() -> int:
     pipes = phase_build(card)
     phase_field(dev, rng)
     errs = phase_kernels(dev, rng)
+    errs |= phase_keygen(dev, rng)
     phase_derive(dev, rng)
     phase_seq_derive(dev, rng)
     phase_derive_k6(dev, rng)
     phase_pubkey(dev, rng)
     decoys = [p2pkh_address(rng.bytes(20)) for _ in range(4096)]
     runs = ([phase_scan(dev, rng, decoys)] + phase_seq_scan(dev, rng, decoys)
-            + phase_scan_k6(dev, rng, decoys))
+            + phase_scan_k6(dev, rng, decoys) + phase_keygen_scans(dev, rng, decoys)
+            + [phase_sequential_off(dev, rng, decoys)])
     times = phase_rate(dev, rng, card, int_ops_per_s, pipes)
+    phase_scan_rates(card)
     summary = {"kernels": [
         {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": sum(run[name] for run in runs), "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
          "bound_by": times[name][3], "library_ms": None}
-        for name, k in KERNELS.items()]}
+        for name, k in ALL_KERNELS.items()]}
     say(json.dumps(summary))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -238,3 +238,19 @@ def test_sequential_core_matches_k3_path(dev):
         assert _eq(got[key], want[key])
     for key in ("frag_c", "frag_u"):
         assert all(_eq(g, w) for g, w in zip(got[key], want[key]))
+
+
+@pytest.mark.parametrize("name,args", [(name, args) for name, _, args in chip_smoke.keygen_modes()],
+                         ids=[label for _, label, _ in chip_smoke.keygen_modes()])
+def test_keygen_kernels_match_plain(dev, name, args):
+    """Every mode and variant of the three keygen kernels on the edge seeds
+    (decimal strings of 1 to 20 bytes) and random ones: one launch, the
+    plain version's words lane for lane."""
+    from vuke_tpu_torch.cores import keygen
+
+    hi, lo = chip_smoke.seed_words(chip_smoke.keygen_seeds(np.random.default_rng(2), N), dev)
+    kern = chip_smoke.KEYGEN[name]
+    before = kern.launches
+    got = getattr(keygen, name)(hi, lo, *args)
+    assert kern.launches == before + 1
+    assert _eq(got, getattr(keygen, f"{name}_plain")(hi, lo, *args))

@@ -116,18 +116,16 @@ def test_cli_scan_prints_the_hit(tmp_path, capsys):
     rc = cli.main(["scan", "--transform", "milksad", "--targets", str(path),
                    "--batch", "32", "--device", "cpu", "range", "--start", "40",
                    "--end", "71"])
-    out = capsys.readouterr().out
+    out, err = capsys.readouterr()
     assert rc == 0
     assert "Source: 42\n" in out
     assert f"Matched: {d.p2pkh_compressed} (p2pkh_compressed)" in out
     assert f"Private Key: {d.private_key_hex}" in out
-    assert out.strip().splitlines()[-1] == (
-        '{"inputs_processed": 32, "keys_generated": 32, "candidates": 1, '
-        '"matches_found": 1}')
+    assert err.strip().splitlines()[-1] == "Done. Inputs: 32, Keys: 32, Matches: 1"
 
 
 @pytest.mark.parametrize("argv", [
-    ["scan", "--transform", "sha256", "--targets", "x", "range", "--start", "1", "--end", "2"],
+    ["scan", "--transform", "electrum", "--targets", "x", "range", "--start", "1", "--end", "2"],
     ["scan", "--transform", "milksad", "--targets", "x", "wordlist"],
     ["generate"],
 ])
@@ -145,8 +143,11 @@ import importlib, pkgutil, sys
 import vuke_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vuke_tpu_torch.__path__, 'vuke_tpu_torch.')
          if m.name != 'vuke_tpu_torch.__main__']   # runs the command line
-assert len(names) >= 20, names
+assert len(names) >= 30, names
 assert {'vuke_tpu_torch.ecc.smul_w8', 'vuke_tpu_torch.ecc.pubkey'} <= set(names), names
+assert {'vuke_tpu_torch.cores.' + m for m in ('common', 'decimal', 'sha256', 'md5', 'lcg',
+        'xorshift', 'sha256_chain', 'keygen')} <= set(names), names
+assert {'vuke_tpu_torch.transforms.numeric', 'vuke_tpu_torch.transforms.registry'} <= set(names)
 for name in names + ['chip_smoke']:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

@@ -226,9 +226,7 @@ def test_direct_be_cli_scan_prints_the_jax_hit_block(tmp_path):
                         "--batch", "1024", "range", "--start", "2097152", "--end", "2101247"],
                        capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip().splitlines()[-1] == (
-        '{"inputs_processed": 4096, "keys_generated": 4096, "candidates": 1, '
-        '"matches_found": 1}')
+    assert r.stderr.strip().splitlines()[-1] == "Done. Inputs: 4096, Keys: 4096, Matches: 1"
 
     buf = io.StringIO()
     driver = ForwardDriver([parse_transform("direct:be")], Matcher.from_addresses([decoy, addr]),

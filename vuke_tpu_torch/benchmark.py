@@ -11,7 +11,14 @@
   under ``sequential_scan_derivations_per_sec``.
 
 Both are timed with CUDA events after a warm-up, each measured window
-fenced by ``torch.cuda.synchronize()``, best of 3 windows.  ``profile_*``
+fenced by ``torch.cuda.synchronize()``, best of 3 windows.  Beside them:
+
+- ``bench_transform``, port of ``vuke_tpu.benchmark.bench_transform``: the
+  keygen-only rate of one transform (inputs/s and keys/s), the same way;
+- ``bench_scan``: keys/s of a whole scan through the pipelined driver
+  (``pipeline.ForwardDriver``) on the host's clock, against a pool of
+  random fragments, with where its time goes (``_profile``'s fields per
+  superbatch).  ``profile_*``
 say where a batch's time goes (``torch.profiler``); ``kernel_cases`` holds
 each kernel and its plain version at the derive's shapes, for timing them
 alone.  They run only on a CUDA device: a measurement never falls back to
@@ -24,15 +31,20 @@ import collections
 import itertools
 import time
 
+import numpy as np
 import torch
 
 from ._device import i64, require_cuda, u32
-from .cores import hash160, mt19937
+from .cores import hash160, keygen, mt19937
+from .derive import KeyDeriver
 from .ecc import incremental as inc
 from .ecc import inv, ref, scalar, smul, smul_w8
 from .ecc.incremental import BaseStepper, build_offset_table, offset_table, sequential_core
 from .ecc.tiled import derive_hash160s_tiled, use_smul13
 from .kernels import Kernel
+from .matcher import TargetPools
+from .pipeline import ForwardDriver
+from .transforms import parse_transform
 
 METRIC = "seed_to_hash160_derivations_per_sec"
 SEQ_METRIC = "sequential_scan_derivations_per_sec"
@@ -302,4 +314,139 @@ def kernel_cases(dev, seeds: torch.Tensor) -> dict:
         # K1 without its epilogue, as the scan's keygen runs it
         "mt19937 raw": (lambda: mt19937.milksad_key_words(seeds),
                         lambda: mt19937.milksad_key_words_plain(seeds)),
+    } | keygen_cases(seeds)
+
+
+def keygen_cases(lo: torch.Tensor) -> dict:
+    """{kernel name: (kernel call, plain call)} of the keygen kernels on the
+    seeds (0, ``lo``), in the modes the planted scans run: sha256, the four
+    LCGs and every sha256_chain variant."""
+    hi = u32(i64(lo) * 0)
+    return {
+        "keygen_hash": (lambda: keygen.keygen_hash(hi, lo, "sha256"),
+                        lambda: keygen.keygen_hash_plain(hi, lo, "sha256")),
+        "keygen_prng": (lambda: keygen.keygen_prng(hi, lo, "lcg"),
+                        lambda: keygen.keygen_prng_plain(hi, lo, "lcg")),
+        "keygen_chain": (lambda: keygen.keygen_chain(hi, lo),
+                         lambda: keygen.keygen_chain_plain(hi, lo)),
+    }
+
+
+def bench_transform(transform: str, batch: int = 1 << 19, iters: int = 20) -> dict:
+    """Keygen-only rate of ``transform`` at ``batch`` seeds a call (seeds
+    below 2^32, fresh ones on each of four calls in turn): the best of 3
+    windows, as ``_rate`` takes them."""
+    dev = require_cuda()
+    spec = parse_transform(transform)
+    offsets = torch.arange(batch, dtype=torch.int64, device=dev)
+    lattices = [(u32(offsets * 0), u32(offsets + (1 << 24) + i * batch)) for i in range(4)]
+    turn = itertools.count()
+
+    def step():
+        return spec.numeric.keygen(*lattices[next(turn) % 4])
+
+    window_ms = [time_cuda(step, iters=iters, warmup=3 if w == 0 else 0) for w in range(3)]
+    ms = min(window_ms)
+    return {
+        "transform": spec.name,
+        "inputs_per_sec": batch / (ms / 1e3),
+        "keys_per_sec": batch * spec.numeric.n_slots / (ms / 1e3),
+        "slots": spec.numeric.n_slots,
+        "ms_per_batch": ms,
+        "window_ms": window_ms,
+        "batch": batch,
+        "iterations": iters,
+        "device": torch.cuda.get_device_name(dev),
+    }
+
+
+SCAN_METRIC = "scan_keys_per_sec"
+
+
+def _scan_start(spec) -> int:
+    """Where ``bench_scan`` starts: 2^48 for a transform with a sequential
+    slot (every superbatch takes it), else 2^24 (seeds below 2^32, where
+    milksad, the LCGs and the 4-byte chains yield keys)."""
+    return 1 << 48 if spec.numeric.sequential_slot is not None else 1 << 24
+
+
+def bench_scan(transform: str, pool_size: int = 4096, batch: int = 1 << 19,
+               superbatches: int = 16, seed: int = 6) -> dict:
+    """Keys/s of a scan of ``transform`` through ``pipeline.ForwardDriver``
+    at ``batch`` seeds a superbatch, on the host's clock from the first
+    launch to the last read, against pools of ``pool_size`` random
+    fragments each.  A warm-up of two superbatches (kernel build, offset
+    table, host tables) holds one planted target, which must be found; the
+    timed run of ``superbatches`` follows it and is then profiled
+    (``torch.profiler``) once more over the next ``superbatches``:
+    device busy, launches and the idle share a superbatch, and the host's
+    time in ``ScanProgram.run`` (its issue time)."""
+    dev = require_cuda()
+    spec = parse_transform(transform)
+    start = _scan_start(spec)
+    planted = start + batch // 3
+    hi = torch.tensor([planted >> 32], dtype=torch.int64).to(torch.uint32)
+    lo = torch.tensor([planted & 0xFFFFFFFF], dtype=torch.int64).to(torch.uint32)
+    key = b"".join(int(w).to_bytes(4, "big") for w in
+                   spec.numeric.keygen(hi, lo, plain=True)[0][0, :, 0].to(torch.int64))
+    address = KeyDeriver().derive(key).p2pkh_compressed
+    one = TargetPools.from_addresses([address])
+    rng = np.random.default_rng(seed)
+    pools = TargetPools(
+        np.concatenate([one.comp, rng.integers(-(1 << 63), 1 << 63, pool_size - 1)]),
+        np.concatenate([one.uncomp, rng.integers(-(1 << 63), 1 << 63, pool_size - 1)]),
+        one.targets)
+    driver = ForwardDriver([spec], pools, batch=batch, device=dev)
+    issue = [0.0]
+    prog = driver.programs[0]
+    run = prog.run
+
+    def timed_run(*args):
+        t0 = time.perf_counter()
+        out = run(*args)
+        issue[0] += time.perf_counter() - t0
+        return out
+
+    warm = driver.run_range(start, start + 2 * batch - 1)
+    if [h.seed for h in warm.hits] != [planted]:
+        raise RuntimeError(f"bench_scan {transform}: the planted seed {planted} was not "
+                           f"found: {[h.source for h in warm.hits]}")
+    first = start + 2 * batch
+    span = superbatches * batch
+    prog.run = timed_run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = driver.run_range(first, first + span - 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    prog.run = run
+    # every slot's path ends in K4 and K2, whichever it takes
+    _, events, wall_ms = _profiled(
+        lambda: driver.run_range(first + span, first + 2 * span - 1), 1,
+        {inv.KERNEL.entry, hash160.KERNEL.entry})
+    ours = {k.entry for k in Kernel.registry.values()}
+    busy = sum(ms for ms, _ in events.values()) / superbatches
+    wall = wall_ms / superbatches
+    return {
+        "metric": SCAN_METRIC,
+        "transform": spec.name,
+        "keys_per_sec": res.keys_generated / secs,
+        "inputs_per_sec": res.inputs_processed / secs,
+        "slots": spec.numeric.n_slots,
+        "pool_size": pool_size,
+        "batch": batch,
+        "superbatches": superbatches,
+        "start": first,
+        "seconds": secs,
+        "ms_per_superbatch": secs * 1e3 / superbatches,
+        "host_issue_ms_per_superbatch": issue[0] * 1e3 / superbatches,
+        "wall_ms_per_superbatch": wall,
+        "device_busy_ms_per_superbatch": busy,
+        "device_idle_share": 1.0 - busy / wall,
+        "launches_per_superbatch": sum(n for _, n in events.values()) / superbatches,
+        "glue_launches_per_superbatch": sum(n for name, (_, n) in events.items()
+                                            if name not in ours) / superbatches,
+        "kernels_ms_per_superbatch": {name: ms / superbatches for name, (ms, _) in
+                                      sorted(events.items(), key=lambda kv: -kv[1][0])},
+        "device": torch.cuda.get_device_name(dev),
     }

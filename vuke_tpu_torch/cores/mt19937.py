@@ -75,3 +75,42 @@ def milksad_key_words(seeds: torch.Tensor, normalize: bool = False) -> torch.Ten
         KERNEL.launch(dev, seeds.data_ptr(), out.data_ptr(), n, int(normalize))
     return out
 
+
+
+# --- MT19937-64 (the mt64 transform) ---
+
+_F64 = 6364136223846793005
+_MATRIX_A64 = 0xB5026F5AA96619E9
+_UPPER64 = 0xFFFFFFFF80000000
+_LOWER64 = 0x7FFFFFFF
+
+
+def mt64_key_words_plain(hi: torch.Tensor, lo: torch.Tensor):
+    """int64-held u32 (hi, lo) seeds -> the 8 BE key words of MT19937-64
+    seeded with the u64 seed: its first 4 outputs serialized little-endian
+    (``vuke_tpu/cores/mt19937.py::mt64_key_words``).  The outputs read state
+    words 0..4 and 156..159 (``vuke_tpu/cores/mt19937.py:116-135``); only
+    those of the init recurrence are kept."""
+    from .common import u64_and, u64_const, u64_mul_lo, u64_or, u64_shl, u64_shr, u64_xor
+
+    s = (hi, lo)
+    taps = {0: s}
+    for k in range(1, 160):
+        x = u64_mul_lo(u64_xor(s, u64_shr(s, 62)), u64_const(_F64))
+        low = x[1] + k
+        s = ((x[0] + (low >> 32)) & MASK32, low & MASK32)
+        if k <= 4 or k >= 156:
+            taps[k] = s
+    out = []
+    for j in range(4):
+        y = u64_or(u64_and(taps[j], u64_const(_UPPER64)),
+                   u64_and(taps[j + 1], u64_const(_LOWER64)))
+        odd = y[1] & 1
+        x = u64_xor(u64_xor(taps[j + 156], u64_shr(y, 1)),
+                    (odd * (_MATRIX_A64 >> 32), odd * (_MATRIX_A64 & MASK32)))
+        x = u64_xor(x, u64_and(u64_shr(x, 29), u64_const(0x5555555555555555)))
+        x = u64_xor(x, u64_and(u64_shl(x, 17), u64_const(0x71D67FFFEDA60000)))
+        x = u64_xor(x, u64_and(u64_shl(x, 37), u64_const(0xFFF7EEE000000000)))
+        x = u64_xor(x, u64_shr(x, 43))
+        out += [byteswap32(x[1]), byteswap32(x[0])]
+    return out

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import torch
@@ -33,6 +34,13 @@ KERNEL = Kernel(
     "seq_madd", "vk_seq_madd", [PTR, PTR, PTR, PTR, PTR, PTR, PTR, SIZE],
     source="vuke_tpu_torch/csrc/seq_madd.cu",
     replaces="vuke_tpu/ecc/pallas_inv.py:223 _seq_madd_kernel")
+
+
+def use_sequential() -> bool:
+    """Whether a slot whose key is the seed may take the sequential path:
+    True unless ``VUKE_TPU_SEQUENTIAL`` is 0, false or no, the JAX
+    package's switch (``vuke_tpu/pipeline.py:284-289``)."""
+    return os.environ.get("VUKE_TPU_SEQUENTIAL", "1") not in ("0", "false", "no")
 
 
 def sequential_safe(start: int, batch: int) -> bool:

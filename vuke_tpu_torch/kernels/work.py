@@ -282,3 +282,251 @@ def mt19937() -> Ops:
     t = Trace()
     mt19937_lane(t, None)
     return t.ops + NORMALIZE
+
+
+# --- the keygens (cores/keygen.py): counted on the hashes, the generators
+# and the decimal divisions; forming the messages (the string's alignment,
+# terminators, bytes appended at a per-lane offset) is not counted, so these
+# bounds sit below what any kernel needs by that much ---
+
+_MD5_S = (7, 12, 17, 22) * 4 + (5, 9, 14, 20) * 4 + (4, 11, 16, 23) * 4 + (6, 10, 15, 21) * 4
+_MD5_F = (lambda b, c, d: (b & c) | (~b & d), lambda b, c, d: (d & b) | (~d & c),
+          _xor3, lambda b, c, d: c ^ (b | ~d))
+
+
+def md5_block(t: Trace, state, m):
+    """One MD5 compression of the 16 LE words ``m`` (cores/md5.py::compress)."""
+    from ..cores.md5 import K
+    a, b, c, d = state
+    for i in range(64):
+        r = i // 16
+        g = (i, (5 * i + 1) % 16, (3 * i + 5) % 16, (7 * i) % 16)[r]
+        f = t.add(t.lop(_MD5_F[r], b, c, d), a, K[i], m[g])
+        a, d, c, b = d, c, b, t.add(b, t.rotl(f, _MD5_S[i]))
+    return [t.add(x, y) for x, y in zip(state, (a, b, c, d))]
+
+
+# u64 values as (hi, lo) words, each an int or None
+
+
+def xor64(t: Trace, a, b):
+    return t.lop(lambda x, y: x ^ y, a[0], b[0]), t.lop(lambda x, y: x ^ y, a[1], b[1])
+
+
+def and64(t: Trace, a, b):
+    return t.lop(lambda x, y: x & y, a[0], b[0]), t.lop(lambda x, y: x & y, a[1], b[1])
+
+
+def shl64(t: Trace, a, n: int):
+    if n >= 32:
+        return t.shl(a[1], n - 32), 0
+    return t.lop(lambda h, l: (h << n) | (l >> (32 - n)), a[0], a[1]), t.shl(a[1], n)
+
+
+def shr64(t: Trace, a, n: int):
+    if n >= 32:
+        return 0, t.shr(a[0], n - 32)
+    return t.shr(a[0], n), t.funnel(a[0], a[1], n)
+
+
+def rotl64(t: Trace, a, n: int):
+    """Two funnel shifts."""
+    hi, lo = (a[0], a[1]) if n < 32 else (a[1], a[0])
+    n %= 32
+    return (t.lop(lambda h, l: ((h << n) | (l >> (32 - n))) & M32, hi, lo),
+            t.lop(lambda h, l: ((l << n) | (h >> (32 - n))) & M32, hi, lo))
+
+
+def add64(t: Trace, a, b):
+    """An add, then an add with its carry."""
+    if None not in (*a, *b):
+        v = ((a[0] << 32 | a[1]) + (b[0] << 32 | b[1])) & ((1 << 64) - 1)
+        return v >> 32, v & M32
+    t.add_ += 2
+    return None, None
+
+
+def mul64(t: Trace, a, b):
+    """The low 64 bits of a product: the low words' wide product (2
+    results) and the two cross products' multiply-adds into its high word."""
+    if None not in (*a, *b):
+        v = ((a[0] << 32 | a[1]) * (b[0] << 32 | b[1])) & ((1 << 64) - 1)
+        return v >> 32, v & M32
+    t.mul += 2 + (a[0] != 0 and b[1] != 0) + (a[1] != 0 and b[0] != 0)
+    return None, None
+
+
+def _c64(v: int):
+    return v >> 32 & M32, v & M32
+
+
+def decimal(digits: float) -> Ops:
+    """The decimal string of a seed of ``digits`` digits: one division by 10
+    each, counted at its 32-bit cost (a multiply-high by the reciprocal, the
+    remainder's multiply-add, the quotient's shift), below the 64-bit one."""
+    return digits * Ops(mul=2, alu=1)
+
+
+def _str_block(length_word=None):
+    return [None] * 6 + [0] * 8 + [0, length_word]
+
+
+def keygen_hash(mode: str, digits: float) -> Ops:
+    """keygen_hash per lane in ``mode`` for seeds of ``digits`` decimal
+    digits on average (csrc/keygen_hash.cu)."""
+    t = Trace()
+    if mode == "direct":
+        t.bswap(None), t.bswap(None)
+    elif mode == "md5":
+        for w in md5_block(t, [0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476],
+                           [None] * 6 + [0] * 8 + [None, 0]):
+            t.bswap(w)
+    else:
+        le = [t.bswap(None), t.bswap(None)]
+        keys = [sha256_block(t, SHA_IV, _str_block()),
+                sha256_block(t, SHA_IV, [None, None, 0x80000000] + [0] * 12 + [64]),
+                sha256_block(t, SHA_IV, le + [0x80000000] + [0] * 12 + [64])]
+        if mode == "double_sha256":
+            for k in keys:
+                sha256_block(t, SHA_IV, k + [0x80000000] + [0] * 6 + [256])
+    return t.ops + decimal(digits)
+
+
+def lcg_lane(t: Trace, seed, v, big_endian: bool = True):
+    """8 outputs of the LCG variant ``v`` (cores/lcg.py) from a u32 seed:
+    a multiply-add a step; glibc masks it (1); minstd takes the wide product
+    (2 results) and folds mod 2^31 - 1 twice (5 ALU, 3 adds) and keeps 0
+    canonical (a compare and a select)."""
+    out, s = [], seed
+    for _ in range(8):
+        if v.m == (1 << 31) - 1:
+            if s is None:
+                t.mul += 2
+                t.alu += 5 + 2
+                t.add_ += 3
+            else:
+                s = (v.a * s + v.c) % v.m
+        else:
+            s = t.mad(v.a, s, v.c)
+            if v.m == 1 << 31:
+                s = t.lop(lambda x: x & 0x7FFFFFFF, s)
+        out.append(s if big_endian else t.bswap(s))
+    return out
+
+
+def _nonzero(t: Trace, hi, lo):
+    """A zero seed becomes 1: a compare and a select."""
+    if None in (hi, lo):
+        t.alu += 2
+        return hi, None
+    return hi, lo or (0 if hi else 1)
+
+
+def splitmix64_lane(t: Trace, x):
+    x = add64(t, x, _c64(0x9E3779B97F4A7C15))
+    x = mul64(t, xor64(t, x, shr64(t, x, 30)), _c64(0xBF58476D1CE4E5B9))
+    x = mul64(t, xor64(t, x, shr64(t, x, 27)), _c64(0x94D049BB133111EB))
+    return xor64(t, x, shr64(t, x, 31))
+
+
+def xorshift_lane(t: Trace, name: str, hi, lo):
+    """The 8 BE key words of xorshift variant ``name`` (cores/xorshift.py)."""
+    hi, lo = _nonzero(t, hi, lo)
+    out = []
+    if name == "xorshift64":
+        s = (hi, lo)
+        for _ in range(4):
+            s = xor64(t, s, shl64(t, s, 13))
+            s = xor64(t, s, shr64(t, s, 7))
+            s = xor64(t, s, shl64(t, s, 17))
+            out += list(s)
+    elif name == "xorshift128":
+        x, y = lo, hi
+        z = t.lop(lambda v: v ^ 0x12345678, lo)
+        w = t.lop(lambda v: v ^ 0x87654321, hi)
+        for _ in range(8):
+            tt = t.lop(lambda a, b: a ^ b, x, t.shl(x, 11))
+            x, y, z = y, z, w
+            w = t.lop(_xor3, w, t.shr(w, 19), t.lop(lambda a, b: a ^ b, tt, t.shr(tt, 8)))
+            out.append(w)
+    else:
+        s0 = splitmix64_lane(t, (hi, lo))
+        s1 = splitmix64_lane(t, s0)
+        for _ in range(4):
+            if name == "xorshift128+":
+                out += list(add64(t, s0, s1))
+            else:
+                out += list(mul64(t, rotl64(t, mul64(t, s0, (0, 5)), 7), (0, 9)))
+            s1 = xor64(t, s1, s0)
+            s0 = xor64(t, xor64(t, rotl64(t, s0, 24), s1), shl64(t, s1, 16))
+            s1 = rotl64(t, s1, 37)
+    return out
+
+
+def mt64_lane(t: Trace, hi, lo):
+    """The 8 BE key words of MT19937-64 (cores/mt19937.py): 159 init steps,
+    each a 64-bit multiply-add, and 4 outputs twisted and tempered."""
+    s = (hi, lo)
+    taps = {0: s}
+    for k in range(1, 160):
+        s = add64(t, mul64(t, xor64(t, s, shr64(t, s, 62)), _c64(6364136223846793005)),
+                  (0, k))
+        if k <= 4 or k >= 156:
+            taps[k] = s
+    out = []
+    for j in range(4):
+        # the upper mask keeps all of the high word
+        y = (taps[j][0],
+             t.lop(lambda a, b: (a & 0x80000000) | (b & 0x7FFFFFFF), taps[j][1], taps[j + 1][1]))
+        if None in y:
+            t.alu += 3            # the low bit's select of the matrix's two words
+            mag = (None, None)
+        else:
+            mag = _c64(0xB5026F5AA96619E9 if y[1] & 1 else 0)
+        x = xor64(t, xor64(t, taps[j + 156], shr64(t, y, 1)), mag)
+        x = xor64(t, x, and64(t, shr64(t, x, 29), _c64(0x5555555555555555)))
+        x = xor64(t, x, and64(t, shl64(t, x, 17), _c64(0x71D67FFFEDA60000)))
+        x = xor64(t, x, and64(t, shl64(t, x, 37), _c64(0xFFF7EEE000000000)))
+        x = xor64(t, x, shr64(t, x, 43))
+        out += [t.bswap(x[1]), t.bswap(x[0])]
+    return out
+
+
+def keygen_prng(family: str, variant: int = -1, big_endian: bool = True) -> Ops:
+    """keygen_prng per lane: every slot of ``family`` (csrc/keygen_prng.cu)."""
+    from ..cores import lcg, xorshift
+    t = Trace()
+    if family == "lcg":
+        for v in (lcg.ALL_VARIANTS if variant < 0 else [lcg.ALL_VARIANTS[variant]]):
+            lcg_lane(t, None, v, big_endian)
+    elif family == "xorshift":
+        names = xorshift.VARIANT_NAMES
+        for name in (names if variant < 0 else [names[variant]]):
+            xorshift_lane(t, name, None, None)
+    else:
+        mt64_lane(t, None, None)
+    return t.ops
+
+
+def keygen_chain(digits: float, variant: int = -1, depth: int = 10) -> Ops:
+    """keygen_chain per lane: one SHA-256 compression a slot over the
+    seed's string, then over its 4 bytes (csrc/keygen_chain.cu)."""
+    from ..cores.sha256_chain import VARIANTS, suffix
+    t = Trace()
+    for v in (VARIANTS if variant < 0 else [VARIANTS[variant]]):
+        for d in range(depth):
+            # the decimal string: up to 7 lane words once bytes are appended
+            sha256_block(t, SHA_IV, _str_block() if v == "iterated" and d == 0 else
+                         [None] * 8 + [0x80000000] + [0] * 6 + [256] if v == "iterated"
+                         else [None] * 7 + [0] * 7 + [0, None])
+            # the 4-byte seed: one lane word, the appended bytes known
+            if v == "iterated":
+                block = ([None, 0x80000000] + [0] * 13 + [32] if d == 0 else
+                         [None] * 8 + [0x80000000] + [0] * 6 + [256])
+            else:
+                tail = suffix(v, d)
+                pad = (tail + b"\x80").ljust(-(-(len(tail) + 1) // 4) * 4, b"\x00")
+                words = [int.from_bytes(pad[i:i + 4], "big") for i in range(0, len(pad), 4)]
+                block = [None] + words + [0] * (14 - len(words)) + [0, (4 + len(tail)) * 8]
+            sha256_block(t, SHA_IV, block)
+    return t.ops + decimal(digits)
