@@ -61,8 +61,9 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    5e. direct:be with ``VUKE_TPU_SEQUENTIAL=0`` over two superbatches that
    would be sequential: K5 never, the keygen and K3 once each;
    every scan prints exactly its hit on stdout, with the reference's
-   ``Source:`` and ``Transform:`` lines, and ``Scanning...`` and ``Done.
-   Inputs: N, Keys: K, Matches: 1`` on stderr;
+   ``Source:`` and ``Transform:`` lines, and ``Loaded N target
+   addresses``, ``Scanning...`` and ``Done. Inputs: N, Keys: K, Matches:
+   1`` on stderr;
 6. the derive rates (seed_to_hash160_derivations_per_sec through K3 and
    through K6, sequential_scan_derivations_per_sec), each derive's profile
    (device launches a batch, torch glue, device busy, the host's issue
@@ -74,7 +75,29 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    keygen kernels in the modes the scans run (sha256, the four LCGs,
    every sha256_chain variant); then the scan rate through the pipelined
    driver (``benchmark.bench_scan``) of milksad, direct:be and sha256
-   against 4096 and 2^20 fragments.
+   against 4096 and 2^20 fragments;
+7. the string and generate paths, with D1 (``csrc/digest.cu``, the string
+   digests) and D2 (``csrc/p2pkh.cu``, generate's P2PKH encoding):
+   7a. D1 in every mode on 2^16 strings of 0 to 300 bytes (the padding
+   edges and UTF-8 text included) and its chain mode at depth 10, against
+   its plain version and hashlib on every lane; its time on 2^19 strings
+   of 1 to 64 bytes, and hashlib's on the host;
+   7b. D2 on 2^19 random and edge hash160s (all zeros, all 0xff) for the
+   versions 0x00 and 0x6F against its plain version on every row and
+   ``encode.p2pkh_address`` on 4096;
+   7c. ``generate --transform sha256 --transform md5`` over 70,000 seeds
+   without ``--batch``: the line count, the JAX package's order (65536-seed
+   chunks, then transform, seed, slot), 4096 sampled lines against the
+   host ``KeyDeriver``; then the lines/s of 2^20 sha256 seeds
+   (``benchmark.bench_generate``);
+   7d. a wordlist scan of 2^20 seeded words with sha256, double_sha256,
+   md5 and direct against 4096 decoys and four planted words: exactly
+   those hits; the words/s (``benchmark.bench_strings``); then
+   sha256_chain over 2^14 words with ``VUKE_HOST_DIGEST_MAX=0``, so that
+   D1 runs on the path, with one planted key;
+   7e. ``timestamps --microseconds`` over one day (86,486,400 seeds) with
+   a hit planted in the millisecond lattice; stdin and files scans in
+   subprocesses.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
@@ -96,13 +119,14 @@ import time
 import numpy as np
 import torch
 
-from vuke_tpu_torch import cli, encode, kernels
+from vuke_tpu_torch import cli, encode, kernels, pipeline
 from vuke_tpu_torch._device import require_cuda
 from vuke_tpu_torch.benchmark import (bench_derive, bench_sequential, device_ms,
                                       kernel_cases, profile_derive, profile_sequential,
                                       time_cuda)
-from vuke_tpu_torch.benchmark import bench_scan
-from vuke_tpu_torch.cores import hash160, keygen, lcg, mt19937, sha256_chain
+from vuke_tpu_torch.benchmark import bench_generate, bench_scan, bench_strings
+from vuke_tpu_torch.cores import digest, hash160, keygen, lcg, mt19937, p2pkh, sha256_chain
+from vuke_tpu_torch.derive import KeyDeriver
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
 from vuke_tpu_torch.ecc import inv, pubkey, ref, scalar, smul, smul_w8, tiled
@@ -117,7 +141,13 @@ KERNELS = {"mt19937": mt19937.KERNEL, "normalize": scalar.KERNEL, "smul": smul.K
            "hash160": hash160.KERNEL}
 KEYGEN = {"keygen_hash": keygen.HASH_KERNEL, "keygen_prng": keygen.PRNG_KERNEL,
           "keygen_chain": keygen.CHAIN_KERNEL}
-ALL_KERNELS = KERNELS | KEYGEN
+STRING_KERNELS = {"digest": digest.KERNEL, "p2pkh": p2pkh.KERNEL}
+ALL_KERNELS = KERNELS | KEYGEN | STRING_KERNELS
+N_STRINGS = 1 << 16
+GEN_SEEDS = 70_000
+WORDS = 1 << 20
+CHAIN_WORDS = 1 << 14
+DAY = "2015-06-01"
 MILKSAD_PATH = ("mt19937", "smul", "inv_affine", "hash160")
 SLOT_PATH = ("normalize", "smul", "inv_affine", "hash160")
 KEYGEN_MODE = {"keygen_hash": "sha256", "keygen_prng": "lcg, four variants",
@@ -784,7 +814,7 @@ def run_scan(transform: str, start: int, end: int, source: str, target: str, dec
     ``target``, with every launch count set to 0 just before and read just
     after.  Its stdout must be exactly one hit block, for ``source``,
     ``display`` and ``target`` (and the private key ``key_hex`` where
-    given), and its stderr the reference's two lines.  Returns the launch
+    given), and its stderr the reference's three lines.  Returns the launch
     counts and the host's seconds."""
     path = kernels.BUILD_DIR / "smoke_targets.txt"
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -802,7 +832,9 @@ def run_scan(transform: str, start: int, end: int, source: str, target: str, dec
     launches = launch_counts()
     text, log = out.getvalue(), err.getvalue()
     done = f"Done. Inputs: {end - start + 1}, Keys: {keys}, Matches: 1"
-    if (rc != 0 or log.splitlines() != ["Scanning...", done] or text.count("========== HIT") != 1
+    loaded = f"Loaded {len(set(decoys + [target]))} target addresses"
+    if (rc != 0 or log.splitlines() != [loaded, "Scanning...", done]
+            or text.count("========== HIT") != 1
             or not text.startswith("\n========== HIT ==========\n")
             or not text.endswith("\n=========================\n")):
         raise AssertionError(f"scan {transform}: expected exactly one hit block on stdout and "
@@ -1227,6 +1259,398 @@ def phase_scan_rates(card: str):
             f"({r['glue_launches_per_superbatch']:g} torch glue); device ms: {kern} [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the string and generate paths, D1 and D2
+# ---------------------------------------------------------------------------
+
+def digest_strings(rng, n: int) -> list:
+    """``n`` byte strings of 0 to 300 bytes: the padding edges (0, 1, 55,
+    56, 63, 64, 119, 120, 300 bytes), UTF-8 text, then random bytes."""
+    base = [bytes(k) for k in (0, 1, 55, 56, 63, 64, 119, 120, 300)]
+    base += [b"\xff" * k for k in (55, 56, 119, 120)]
+    base += [t.encode() for t in ("correct horse battery staple", "ünïcödé pässwörd €",
+                                  "語" * 20, "é" * 28)]
+    lens = rng.integers(0, 301, n - len(base))
+    blob = rng.bytes(int(lens.sum()))
+    ends = np.cumsum(lens).tolist()
+    return base + [blob[e - k:e] for e, k in zip(ends, lens.tolist())]
+
+
+def host_digest(data: bytes, mode: str) -> bytes:
+    if mode == "md5":
+        return hashlib.md5(data).digest()
+    d = hashlib.sha256(data).digest()
+    return hashlib.sha256(d).digest() if mode == "double_sha256" else d
+
+
+def digest_mismatches(datas, got: torch.Tensor, mode: str, lanes) -> list:
+    """The lanes of ``got`` (D1's (M, 8) or (M, 4) words) that are not
+    hashlib's digest of ``datas``."""
+    arr = as_i64(got.cpu()).numpy().astype("<u4" if mode == "md5" else ">u4")
+    return [j for j in lanes if arr[j].tobytes() != host_digest(datas[j], mode)]
+
+
+def p2pkh_digests(rng, n: int) -> torch.Tensor:
+    """(5, n) uint32 LE hash160 words: all zeros, all 0xff, 8 zero bytes
+    first, then random ones."""
+    h = rng.integers(0, 1 << 32, (5, n), dtype=np.uint32)
+    h[:, 0] = 0
+    h[:, 1] = 0xFFFFFFFF
+    h[:2, 2] = 0
+    return torch.from_numpy(h)
+
+
+def launch_device_ms(fn, kern, iters: int = 20) -> float:
+    """Device milliseconds of one launch of ``kern`` under
+    ``torch.profiler``, ``fn`` launching it once a call: its recorded time
+    over the launches recorded (CUPTI drops one launch of a window now and
+    then)."""
+    from torch.profiler import ProfilerActivity, profile
+    from vuke_tpu_torch.benchmark import _device_events
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms, n = _device_events(prof, 1).get(kern.entry, (0.0, 0))
+    if n < iters // 2:
+        raise RuntimeError(f"torch.profiler recorded {n} of {iters} launches of {kern.name}")
+    return ms / n
+
+
+def launched_once(kern, fn):
+    before = kern.launches
+    out = fn()
+    torch.cuda.synchronize()
+    if kern.launches != before + 1:
+        raise AssertionError(f"{kern.name}: {kern.launches - before} launches, expected 1")
+    return out
+
+
+def phase_digest(dev, rng, card: str, int_ops_per_s: float):
+    """7a: D1 against its plain version and hashlib, every mode and the
+    chain; then its time at 2^19 short strings beside hashlib's."""
+    datas = digest_strings(rng, N_STRINGS)
+    words, offsets = digest.pack(datas)
+    wd, od = words.to(dev), offsets.to(dev)
+    err = 0
+    for mode in digest.MODES:
+        got = launched_once(digest.KERNEL, lambda: digest.digest(wd, od, mode))
+        err = max(err, exact_err(f"D1 {mode}", [got.cpu()],
+                                 [digest.digest_plain(words, offsets, mode)]))
+        bad = digest_mismatches(datas, got, mode, range(N_STRINGS))
+        if bad:
+            raise AssertionError(f"D1 {mode}: {len(bad)} lanes differ from hashlib: {bad[:8]}")
+    keys = digest.digest(wd, od, "sha256")
+    chain = launched_once(digest.KERNEL, lambda: digest.digest_chain(keys, 10))
+    err = max(err, exact_err("D1 chain", [chain], [digest.digest_chain_plain(keys, 10)]))
+    arr = as_i64(chain.cpu()).numpy().astype(">u4")
+    for j in range(N_STRINGS):
+        cur = hashlib.sha256(datas[j]).digest()
+        for d in range(10):
+            if arr[d, j].tobytes() != cur:
+                raise AssertionError(f"D1 chain lane {j} depth {d} differs from hashlib")
+            cur = hashlib.sha256(cur).digest()
+    say(f"[7a D1 digest] {N_STRINGS} strings of 0..300 bytes (0, 1, 55, 56, 63, 64, 119, 120, "
+        f"300 and UTF-8 included): sha256, double_sha256, md5 == plain lane-exact (max abs "
+        f"err 0) and == hashlib on every lane; the chain at depth 10 == plain and hashlib; "
+        f"one launch a call")
+
+    short = [rng.bytes(int(k)) for k in rng.integers(1, 65, BATCH)]
+    sw, so = digest.pack(short)
+    swd, sod = sw.to(dev), so.to(dev)
+    ms = time_cuda(lambda: digest.digest(swd, sod, "sha256"), iters=20, warmup=3)
+    dev_ms = launch_device_ms(lambda: digest.digest(swd, sod, "sha256"), digest.KERNEL)
+    t0 = time.perf_counter()
+    digest.digest_plain(sw, so, "sha256")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    blocks = float(np.mean([(len(d) + 9 + 63) // 64 for d in short]))
+    ops = work.digest("sha256", blocks)
+    nbytes = 4 * sw.numel() + 8 * so.numel() + 32 * BATCH
+    bound_ms, bound_by, limit = bound_of(nbytes, ops, BATCH, int_ops_per_s)
+    host = {}
+    for k in (1000, BATCH):
+        t0 = time.perf_counter()
+        for d in short[:k]:
+            hashlib.sha256(d).digest()
+        host[k] = (time.perf_counter() - t0) * 1e6 / k
+    say(f"[7a time] D1 sha256 on {BATCH} strings of 1..64 bytes ({blocks:.3f} blocks a "
+        f"string): kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms device (profiler), plain "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {limit} "
+        f"({100 * bound_ms / dev_ms:.1f}% of the device time; {ops.alu:.0f} ALU, {ops.add:.0f} "
+        f"adds a string); hashlib on the host {host[1000]:.3f} us a string over 1000, "
+        f"{host[BATCH]:.3f} over {BATCH} ({host[BATCH] * BATCH / 1e3:.1f} ms) [{card}]")
+    return err, (ms, plain_ms, bound_ms, bound_by)
+
+
+def bound_of(nbytes: float, ops: work.Ops, n: int, int_ops_per_s: float):
+    """(bound_ms, bound_by, limit) of work that moves ``nbytes`` and needs
+    ``ops`` a lane on ``n`` lanes, as ``bound`` gives them."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops.cycles() * n / int_ops_per_s
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", "bytes"
+    return t_ops * 1e3, "operations", ops.pipe()
+
+
+def phase_p2pkh(dev, rng, card: str, int_ops_per_s: float):
+    """7b: D2 against its plain version on every row and
+    ``encode.p2pkh_address`` on 4096, for 0x00 and 0x6F; its time."""
+    h = p2pkh_digests(rng, BATCH)
+    hd = h.to(dev)
+    plain_ms = None
+    for net in (encode.BITCOIN, encode.TESTNET):
+        v = net.p2pkh_version
+        rows = launched_once(p2pkh.KERNEL, lambda: p2pkh.batch_p2pkh(hd, v)).cpu()
+        t0 = time.perf_counter()
+        want = p2pkh.batch_p2pkh_plain(h, v)
+        plain_ms = plain_ms or (time.perf_counter() - t0) * 1e3
+        if not torch.equal(rows, want):
+            bad = (rows != want).any(dim=1).nonzero().flatten().tolist()
+            raise AssertionError(f"D2 version {v:#x}: {len(bad)} rows differ: {bad[:8]}")
+        addrs = p2pkh.addresses(rows.numpy())
+        hb = h.numpy().astype("<u4").T.copy().tobytes()
+        for j in [0, 1, 2] + rng.choice(np.arange(3, BATCH), min(4093, BATCH - 3),
+                                        replace=False).tolist():
+            if addrs[j] != p2pkh_address(hb[20 * j:20 * j + 20], net):
+                raise AssertionError(f"D2 version {v:#x} row {j} differs from p2pkh_address")
+    ms = time_cuda(lambda: p2pkh.batch_p2pkh(hd, 0), iters=20, warmup=3)
+    dev_ms = launch_device_ms(lambda: p2pkh.batch_p2pkh(hd, 0), p2pkh.KERNEL)
+    ops = work.p2pkh()
+    bound_ms, bound_by, limit = bound_of(55 * BATCH, ops, BATCH, int_ops_per_s)
+    say(f"[7b D2 p2pkh] {BATCH} hash160s (all zeros, all 0xff, 8 zero bytes, random), versions "
+        f"0x00 and 0x6f: kernel == plain byte-exact on every row, 4096 rows == "
+        f"encode.p2pkh_address; kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms device "
+        f"(profiler), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {limit} "
+        f"({100 * bound_ms / dev_ms:.1f}% of the device time; needs a lane {ops.mul:.0f} "
+        f"multiplies, {ops.alu:.0f} ALU, {ops.add:.0f} adds) [{card}]")
+    return 0, (ms, plain_ms, bound_ms, bound_by)
+
+
+def run_cli(argv, stdin=None):
+    """``cli.main(argv)`` with every launch count set to 0 just before and
+    read just after, stdout and stderr captured: (rc, stdout, stderr,
+    launches, seconds)."""
+    for kern in ALL_KERNELS.values():
+        kern.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), err.getvalue(), launch_counts(), time.perf_counter() - t0
+
+
+def host_line(line: str, key: bytes) -> str:
+    """The generate line of ``line``'s source and transform for the raw
+    ``key``, from the host ``KeyDeriver``."""
+    source, name = line.split(",")[:2]
+    d = KeyDeriver().derive(key)
+    return f"{source},{name},{d.private_key_hex},{d.p2pkh_compressed}"
+
+
+def phase_generate(dev, rng, card: str) -> dict:
+    """7c: ``generate`` with two transforms over 70,000 seeds, no
+    ``--batch``: one device superbatch, the lines in the JAX package's
+    65536-seed order; 4096 sampled lines against the host; then the
+    lines/s of 2^20 sha256 seeds."""
+    start = 10 ** 12 + int(rng.integers(0, 1 << 20))
+    n, chunk = GEN_SEEDS, pipeline.ORDER_BATCH
+    rc, text, log, launches, secs = run_cli(
+        ["generate", "--transform", "sha256", "--transform", "md5", "range", "--start",
+         str(start), "--end", str(start + n - 1)])
+    done = f"Generating keys...\nDone. Inputs: {2 * n}, Keys: {4 * n}, Matches: 0\n"
+    lines = text.splitlines()
+    if rc != 0 or log != done or len(lines) != 4 * n:
+        raise AssertionError(f"generate: rc {rc}, {len(lines)} lines, stderr {log!r}")
+    order, slots = [], []
+    for a in range(0, n, chunk):
+        seeds = range(start + a, start + min(n, a + chunk))
+        order += [(str(s), "sha256") for s in seeds for _ in range(3)]
+        slots += [0, 1, 2] * len(seeds)
+        order += [(str(s), "md5") for s in seeds]
+        slots += [0] * len(seeds)
+    got = [tuple(line.split(",")[:2]) for line in lines]
+    if got != order:
+        first = next(i for i, (g, w) in enumerate(zip(got, order)) if g != w)
+        raise AssertionError(f"generate: line {first} is {got[first]}, expected {order[first]}")
+    check_launches("generate", launches, {"keygen_hash": 2, "normalize": 4, "smul": 4,
+                                          "inv_affine": 4, "hash160": 4, "p2pkh": 4,
+                                          "seq_madd": 0, "digest": 0, "mt19937": 0})
+    bad = []
+    for i in rng.choice(len(lines), 4096, replace=False).tolist():
+        want = host_line(lines[i], host_hash_keys(got[i][1], int(got[i][0]))[slots[i]])
+        if want != lines[i]:
+            bad.append(want)
+    if bad:
+        raise AssertionError(f"generate: {len(bad)} sampled lines differ from the host: {bad[:3]}")
+    say(f"[7c generate] sha256 + md5 over [{start}, {start + n - 1}] without --batch: "
+        f"{4 * n} lines in the JAX order ({chunk}-seed chunks, then transform, seed, slot), "
+        f"stderr {log!r}; 4096 sampled lines == host KeyDeriver; {secs:.2f} s host wall clock; "
+        f"launches {launches}")
+    r = bench_generate("sha256", seeds=1 << 20, batch=BATCH)
+    for sink in ("devnull", "file"):
+        say(f"[7c generate rate] sha256 over {r['seeds']} seeds, batch {BATCH}, into {sink}: "
+            f"{r[sink]['lines_per_sec']:.0f} lines/s ({r[sink]['lines']} lines in "
+            f"{r[sink]['seconds']:.3f} s) [{card}]")
+    d = r["devnull"]
+    kern = ", ".join(f"{k} {v:.4f}" for k, v in d["kernels_ms_per_superbatch"].items())
+    say(f"[7c generate profile] a superbatch: host issue {d['host_issue_ms_per_superbatch']:.3f} "
+        f"ms, format + write {d['host_write_ms_per_superbatch']:.3f} ms; wall under the "
+        f"profiler {d['wall_ms_per_superbatch']:.3f} ms, device busy "
+        f"{d['device_busy_ms_per_superbatch']:.4f} ms, idle share "
+        f"{d['device_idle_share_per_superbatch']:.3f}, {d['launches_per_superbatch']:g} "
+        f"launches ({d['glue_launches_per_superbatch']:g} torch glue); device ms: {kern} [{card}]")
+    return launches
+
+
+def write_targets(name: str, targets: list, decoys: list):
+    path = kernels.BUILD_DIR / name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(decoys[:2048] + targets + decoys[2048:]) + "\n")
+    return str(path)
+
+
+def hit_sources(text: str) -> list:
+    """(Source, Transform) of each hit block of a scan's stdout."""
+    lines = text.splitlines()
+    return [(lines[i][8:], lines[i + 1][11:]) for i, line in enumerate(lines)
+            if line.startswith("Source: ")]
+
+
+def phase_wordlist(dev, rng, card: str, decoys: list) -> list:
+    """7d: a wordlist scan of 2^20 seeded words with four transforms and a
+    planted word each; its words/s; then sha256_chain over 2^14 words with
+    ``VUKE_HOST_DIGEST_MAX=0`` (D1 on the path)."""
+    from vuke_tpu_torch.benchmark import seeded_words
+    runs = []
+    n = WORDS
+    words = seeded_words(n, int(rng.integers(1 << 31)))
+    picks = rng.choice(n, 4, replace=False).tolist()
+    keys = {"sha256": sha256(words[picks[0]].encode()),
+            "double_sha256": sha256(sha256(words[picks[1]].encode())),
+            "md5": hashlib.md5(words[picks[2]].encode()).digest() * 2,
+            "direct": words[picks[3]].encode().ljust(32, b"\0")}
+    planted = [(words[i], t) for i, t in zip(picks, keys)]
+    targets = [p2pkh_address(host_h160s(int.from_bytes(k, "big") % N or 1)[0]) for k in keys.values()]
+    tpath = write_targets("smoke_words_targets.txt", targets, decoys)
+    wpath = kernels.BUILD_DIR / "smoke_words.txt"
+    wpath.write_text("\n".join(words) + "\n")
+    rc, text, log, launches, secs = run_cli(
+        ["scan"] + sum((["--transform", t] for t in keys), []) + ["--targets", tpath,
+                                                                  "wordlist", "--file", str(wpath)])
+    done = (f"Loaded {len(decoys) + 4} target addresses\nScanning...\n"
+            f"Done. Inputs: {n}, Keys: {4 * n}, Matches: 4\n")
+    if rc != 0 or log != done or sorted(hit_sources(text)) != sorted(planted):
+        raise AssertionError(f"wordlist scan: rc {rc}, hits {hit_sources(text)} (expected "
+                             f"{planted}), stderr {log!r}")
+    batches = -(-n // 1000)
+    check_launches("wordlist scan", launches, {"hash160": 4 * batches, "normalize": 4 * batches,
+                                               "digest": 0, "p2pkh": 0, "keygen_hash": 0})
+    runs.append(launches)
+    say(f"[7d wordlist scan] {n} seeded words x sha256, double_sha256, md5, direct vs "
+        f"{len(decoys)} decoys + 4 planted: exactly the 4 hits {planted}; {n / secs:.0f} "
+        f"words/s through the command line ({secs:.2f} s, file read included); launches "
+        f"{launches} [{card}]")
+    r = bench_strings("sha256", words=n)
+    kern = ", ".join(f"{k} {v:.4f}" for k, v in r["kernels_ms_per_batch"].items())
+    say(f"[7d wordlist rate] sha256 over {n} words: {r['words_per_sec']:.0f} words/s, "
+        f"{r['keys_per_sec']:.0f} keys/s; a batch of {r['string_batch']} (pad {r['pad']}): "
+        f"keys (hashlib) {r['host_keys_ms_per_batch']:.3f} ms, device match with its read "
+        f"{r['host_match_ms_per_batch']:.3f} ms, rest {r['host_other_ms_per_batch']:.3f} ms; "
+        f"under the profiler wall {r['wall_ms_per_batch']:.3f} ms, device busy "
+        f"{r['device_busy_ms_per_batch']:.4f} ms, idle share {r['device_idle_share_per_batch']:.3f}, "
+        f"{r['launches_per_batch']:g} launches ({r['glue_launches_per_batch']:g} torch glue); "
+        f"device ms: {kern} [{card}]")
+
+    n = CHAIN_WORDS
+    words = words[:n]
+    i = int(rng.integers(0, n))
+    key = sha256(words[i].encode() + b"7")
+    tpath = write_targets("smoke_chain_targets.txt",
+                          [p2pkh_address(host_h160s(int.from_bytes(key, "big") % N or 1)[0])],
+                          decoys)
+    wpath.write_text("\n".join(words) + "\n")
+    with env_set("VUKE_HOST_DIGEST_MAX", "0"):
+        rc, text, log, launches, secs = run_cli(
+            ["scan", "--transform", "sha256_chain", "--targets", tpath, "wordlist", "--file",
+             str(wpath)])
+    want = [(f"{words[i]}[counter:7]", "sha256_chain")]
+    done = (f"Loaded {len(decoys) + 1} target addresses\nScanning...\n"
+            f"Done. Inputs: {n}, Keys: {40 * n}, Matches: 1\n")
+    if rc != 0 or log != done or hit_sources(text) != want:
+        raise AssertionError(f"chain wordlist scan: rc {rc}, hits {hit_sources(text)} "
+                             f"(expected {want}), stderr {log!r}")
+    batches = -(-n // 1000)
+    check_launches("chain wordlist scan", launches, {"digest": 32 * batches,
+                                                     "hash160": batches, "p2pkh": 0})
+    runs.append(launches)
+    say(f"[7d chain wordlist scan, VUKE_HOST_DIGEST_MAX=0] {n} words x sha256_chain (40 "
+        f"slots): exactly 1 hit {want[0]}; D1 once per digest call (32 a batch); "
+        f"{secs:.2f} s; launches {launches} [{card}]")
+    return runs
+
+
+def phase_timestamps(dev, rng, card: str, decoys: list) -> dict:
+    """7e: one day with ``--microseconds`` and a hit in the millisecond
+    lattice; then stdin and files scans in subprocesses."""
+    from vuke_tpu_torch.sources import TimestampSource
+    src = TimestampSource.from_dates(DAY, DAY, True)
+    ms = (src.end + 1 - src.start) * 1000
+    planted = src.start * 1000 + int(rng.integers(0, ms))
+    tpath = write_targets("smoke_ts_targets.txt",
+                          [p2pkh_address(host_h160s(int.from_bytes(
+                              sha256(str(planted).encode()), "big") % N or 1)[0])], decoys)
+    rc, text, log, launches, secs = run_cli(
+        ["scan", "--targets", tpath, "timestamps", "--start", DAY, "--end", DAY,
+         "--microseconds"])
+    seeds = src.end + 1 - src.start + ms
+    done = (f"Loaded {len(decoys) + 1} target addresses\nScanning...\n"
+            f"Done. Inputs: {seeds}, Keys: {3 * seeds}, Matches: 1\n")
+    if rc != 0 or log != done or hit_sources(text) != [(str(planted), "sha256")]:
+        raise AssertionError(f"timestamps scan: rc {rc}, hits {hit_sources(text)}, "
+                             f"stderr {log!r}")
+    supers = -(-(src.end + 1 - src.start) // BATCH) + -(-ms // BATCH)
+    check_launches("timestamps scan", launches, {"keygen_hash": supers, "hash160": 3 * supers,
+                                                 "seq_madd": 0, "p2pkh": 0, "digest": 0})
+    say(f"[7e timestamps scan] {DAY} with --microseconds ({seeds} seeds, 3 slots) vs "
+        f"{len(decoys)} decoys + ms {planted}: exactly 1 hit; {seeds / secs:.0f} seeds/s "
+        f"({secs:.2f} s host wall clock); launches {launches} [{card}]")
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    words = [f"stdin word {i}" for i in range(5000)]
+    j = int(rng.integers(0, 5000))
+    tpath = write_targets("smoke_stdin_targets.txt", [p2pkh_address(host_h160s(
+        int.from_bytes(sha256(words[j].encode()), "big") % N or 1)[0])], decoys)
+    files = kernels.BUILD_DIR / "smoke_files"
+    (files / "sub").mkdir(parents=True, exist_ok=True)
+    names = [files / f"f{i}" for i in range(8)] + [files / "sub" / f"g{i}" for i in range(8)]
+    for p in names:
+        p.write_text(p.name)
+    k = str(names[int(rng.integers(0, len(names)))])
+    fpath = write_targets("smoke_files_targets.txt", [p2pkh_address(host_h160s(
+        int.from_bytes(sha256(k.encode()), "big") % N or 1)[0])], decoys)
+    for what, argv, stdin, source, inputs in (
+            ("stdin", ["scan", "--targets", tpath, "stdin"], "\n".join(words) + "\n",
+             words[j], 5000),
+            ("files", ["scan", "--targets", fpath, "files", "--dir", str(files)], None, k,
+             len(names))):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "vuke_tpu_torch", *argv], input=stdin,
+                           capture_output=True, text=True, env=env, timeout=300)
+        done = (f"Loaded {len(decoys) + 1} target addresses\nScanning...\n"
+                f"Done. Inputs: {inputs}, Keys: {inputs}, Matches: 1\n")
+        if r.returncode != 0 or r.stderr != done or hit_sources(r.stdout) != [(source, "sha256")]:
+            raise AssertionError(f"{what} scan: rc {r.returncode}, hits {hit_sources(r.stdout)}"
+                                 f", stderr {r.stderr!r}")
+        say(f"[7e {what} scan] a subprocess over {inputs} inputs vs {len(decoys)} decoys + 1: "
+            f"exactly 1 hit, 'Source: {source}'; {time.perf_counter() - t0:.2f} s with the "
+            f"process's start [{card}]")
+    return launches
+
+
 def main() -> int:
     dev, card, int_ops_per_s = phase_environment()
     rng = np.random.default_rng(20261016)
@@ -1244,12 +1668,19 @@ def main() -> int:
             + [phase_sequential_off(dev, rng, decoys)])
     times = phase_rate(dev, rng, card, int_ops_per_s, pipes)
     phase_scan_rates(card)
+    errs["digest"], times["digest"] = phase_digest(dev, rng, card, int_ops_per_s)
+    errs["p2pkh"], times["p2pkh"] = phase_p2pkh(dev, rng, card, int_ops_per_s)
+    runs += ([phase_generate(dev, rng, card)] + phase_wordlist(dev, rng, card, decoys)
+             + [phase_timestamps(dev, rng, card, decoys)])
     summary = {"kernels": [
         {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": sum(run[name] for run in runs), "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
          "bound_by": times[name][3], "library_ms": None}
         for name, k in ALL_KERNELS.items()]}
+    for row in summary["kernels"]:
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} was launched no time on the main path")
     say(json.dumps(summary))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -254,3 +254,37 @@ def test_keygen_kernels_match_plain(dev, name, args):
     got = getattr(keygen, name)(hi, lo, *args)
     assert kern.launches == before + 1
     assert _eq(got, getattr(keygen, f"{name}_plain")(hi, lo, *args))
+
+
+@pytest.mark.parametrize("mode", ["sha256", "double_sha256", "md5", "chain"])
+def test_digest_kernel_matches_plain_and_hashlib(dev, mode):
+    """D1 on strings of 0 to 300 bytes (the 55/56 and 119/120-byte edges,
+    non-ASCII included), each mode one launch, against its plain version
+    and hashlib; the chain mode at depth 10."""
+    from vuke_tpu_torch.cores import digest
+
+    datas = chip_smoke.digest_strings(np.random.default_rng(3), N)
+    words, offsets = digest.pack(datas)
+    before = digest.KERNEL.launches
+    if mode == "chain":
+        keys = digest.digest_plain(words, offsets, "sha256")
+        got = digest.digest_chain(keys.to(dev), 10)
+        assert _eq(got.cpu(), digest.digest_chain_plain(keys, 10))
+    else:
+        got = digest.digest(words.to(dev), offsets.to(dev), mode)
+        assert _eq(got.cpu(), digest.digest_plain(words, offsets, mode))
+        assert chip_smoke.digest_mismatches(datas, got, mode, range(0, N, 7)) == []
+    assert digest.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("version", [0x00, 0x6F])
+def test_p2pkh_kernel_matches_plain(dev, version):
+    """D2 on random and edge hash160s (all zeros, all 0xff), one launch,
+    byte for byte against its plain version."""
+    from vuke_tpu_torch.cores import p2pkh
+
+    h = chip_smoke.p2pkh_digests(np.random.default_rng(4), N)
+    before = p2pkh.KERNEL.launches
+    got = p2pkh.batch_p2pkh(h.to(dev), version)
+    assert p2pkh.KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), p2pkh.batch_p2pkh_plain(h, version))

@@ -122,8 +122,9 @@ def _targets(tmp_path, *addresses):
 
 
 def test_scan_stdout_is_hit_blocks_and_stderr_the_reference_lines(tmp_path, capsys):
-    """C3: stdout holds only the hit block; stderr the two lines of
-    ``vuke_tpu/cli.py:268,338-339``, byte for byte."""
+    """C3 and C5: stdout holds only the hit block; stderr the three lines
+    of ``vuke_tpu/cli.py:383,268,338-339``, byte for byte: the count of
+    distinct target lines, ``Scanning...`` and ``Done. ...``."""
     seed = 1000 + 21
     key = hashlib.sha256(str(seed).encode()).digest()
     d = KeyDeriver().derive(key)
@@ -139,8 +140,10 @@ def test_scan_stdout_is_hit_blocks_and_stderr_the_reference_lines(tmp_path, caps
                    f"P2PKH (compressed): {d.p2pkh_compressed}\n"
                    f"P2PKH (uncompressed): {d.p2pkh_uncompressed}\nP2WPKH: {d.p2wpkh}\n"
                    f"{HIT_CLOSE}")
-    assert err == "Scanning...\nDone. Inputs: 64, Keys: 192, Matches: 1\n"
+    assert err == ("Loaded 1 target addresses\nScanning...\n"
+                   "Done. Inputs: 64, Keys: 192, Matches: 1\n")
     reference = open(os.path.join(REPO, "vuke_tpu", "cli.py")).read()
+    assert 'click.echo(f"Loaded {matcher.count()} target addresses", err=True)' in reference
     assert '"Scanning..." if matcher is not None' in reference
     assert ('f"Done. Inputs: {stats.inputs_processed}, Keys: {stats.keys_generated}, "\n'
             '               f"Matches: {stats.matches_found}", err=True') in reference
@@ -179,8 +182,8 @@ def test_cli_clamps_a_short_range(tmp_path, capsys, monkeypatch):
     out, err = capsys.readouterr()
     assert rc == 0 and batches == [1024]
     assert "Source: 1010\nTransform: milksad\n" in out
-    assert err == ("Scanning...\nnote: --batch 4096 exceeds the 40-seed range; clamping to "
-                   "1024\nDone. Inputs: 40, Keys: 40, Matches: 1\n")
+    assert err == ("Loaded 1 target addresses\nScanning...\nnote: --batch 4096 exceeds the "
+                   "40-seed range; clamping to 1024\nDone. Inputs: 40, Keys: 40, Matches: 1\n")
 
 
 def test_hits_in_program_then_slot_then_lane_order(tmp_path, capsys):
@@ -200,7 +203,7 @@ def test_hits_in_program_then_slot_then_lane_order(tmp_path, capsys):
     sources = [line for line in out.splitlines() if line.startswith(("Source", "Transform"))]
     assert sources == [f"Source: {base + 20}", "Transform: sha256", f"Source: {base + 5}",
                        "Transform: sha256", f"Source: {base + 9}", "Transform: md5"]
-    assert err == "Scanning...\nDone. Inputs: 64, Keys: 128, Matches: 3\n"
+    assert err == "Loaded 3 target addresses\nScanning...\nDone. Inputs: 64, Keys: 128, Matches: 3\n"
 
 
 def test_planted_sha256_string_slot():

@@ -126,8 +126,9 @@ def test_cli_scan_prints_the_hit(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["scan", "--transform", "electrum", "--targets", "x", "range", "--start", "1", "--end", "2"],
-    ["scan", "--transform", "milksad", "--targets", "x", "wordlist"],
-    ["generate"],
+    ["scan", "--transform", "milksad", "--targets", "x", "--storage", "d", "wordlist",
+     "--file", "x"],
+    ["generate", "--bitimage-path", "m/0", "range", "--start", "1", "--end", "2"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -143,11 +144,14 @@ import importlib, pkgutil, sys
 import vuke_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vuke_tpu_torch.__path__, 'vuke_tpu_torch.')
          if m.name != 'vuke_tpu_torch.__main__']   # runs the command line
-assert len(names) >= 30, names
+assert len(names) >= 40, names
 assert {'vuke_tpu_torch.ecc.smul_w8', 'vuke_tpu_torch.ecc.pubkey'} <= set(names), names
 assert {'vuke_tpu_torch.cores.' + m for m in ('common', 'decimal', 'sha256', 'md5', 'lcg',
         'xorshift', 'sha256_chain', 'keygen')} <= set(names), names
 assert {'vuke_tpu_torch.transforms.numeric', 'vuke_tpu_torch.transforms.registry'} <= set(names)
+assert {'vuke_tpu_torch.' + m for m in ('transforms.strings', 'cores.digest', 'cores.p2pkh',
+        'output', 'output.console', 'output.multi', 'progress', 'parallel',
+        'parallel.checkpoint', 'sources')} <= set(names), names
 for name in names + ['chip_smoke']:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

@@ -18,7 +18,13 @@ fenced by ``torch.cuda.synchronize()``, best of 3 windows.  Beside them:
 - ``bench_scan``: keys/s of a whole scan through the pipelined driver
   (``pipeline.ForwardDriver``) on the host's clock, against a pool of
   random fragments, with where its time goes (``_profile``'s fields per
-  superbatch).  ``profile_*``
+  superbatch);
+- ``bench_generate``: lines/s of ``generate`` over a range through the
+  driver's generate mode (D2 on the card, ``pipeline.format_lines`` on the
+  host) into a discarding sink and into a file;
+- ``bench_strings``: words/s and keys/s of a wordlist scan through
+  ``pipeline.StringDriver``, batch by batch as ``sources.WordlistSource``
+  feeds it.  ``profile_*``
 say where a batch's time goes (``torch.profiler``); ``kernel_cases`` holds
 each kernel and its plain version at the derive's shapes, for timing them
 alone.  They run only on a CUDA device: a measurement never falls back to
@@ -28,6 +34,7 @@ the CPU.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import itertools
 import time
 
@@ -42,8 +49,10 @@ from .ecc import inv, ref, scalar, smul, smul_w8
 from .ecc.incremental import BaseStepper, build_offset_table, offset_table, sequential_core
 from .ecc.tiled import derive_hash160s_tiled, use_smul13
 from .kernels import Kernel
+from .cores import p2pkh
 from .matcher import TargetPools
-from .pipeline import ForwardDriver
+from .output import ConsoleOutput
+from .pipeline import ORDER_BATCH, ForwardDriver, StringDriver
 from .transforms import parse_transform
 
 METRIC = "seed_to_hash160_derivations_per_sec"
@@ -450,3 +459,175 @@ def bench_scan(transform: str, pool_size: int = 4096, batch: int = 1 << 19,
                                       sorted(events.items(), key=lambda kv: -kv[1][0])},
         "device": torch.cuda.get_device_name(dev),
     }
+
+
+def _wrap(obj, name: str, acc: dict, key: str):
+    """Add the host seconds of each call of ``obj.name`` to ``acc[key]``;
+    returns a function that undoes it."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+    return lambda: setattr(obj, name, fn)
+
+
+def _breakdown(events: dict, wall_ms: float, per: float) -> dict:
+    """Device busy, launches, glue launches and idle share of a profiled
+    window of ``wall_ms``, each divided by ``per``."""
+    ours = {k.entry for k in Kernel.registry.values()}
+    busy = sum(ms for ms, _ in events.values())
+    return {
+        "wall_ms": wall_ms / per,
+        "device_busy_ms": busy / per,
+        "device_idle_share": 1.0 - busy / wall_ms,
+        "launches": sum(n for _, n in events.values()) / per,
+        "glue_launches": sum(n for name, (_, n) in events.items() if name not in ours) / per,
+        "kernels_ms": {name: ms / per for name, (ms, _) in
+                       sorted(events.items(), key=lambda kv: -kv[1][0])},
+    }
+
+
+def bench_generate(transform: str = "sha256", seeds: int = 1 << 20, batch: int = 1 << 19,
+                   path=None) -> dict:
+    """Lines/s of ``generate`` over ``seeds`` seeds from 2^24 at ``batch``
+    a superbatch (the output in the JAX package's order, ``ORDER_BATCH``),
+    on the host's clock, after a warm-up of two superbatches (the kernels,
+    and the pinned buffers of two superbatches in flight): into a
+    discarding sink (``os.devnull``) and into ``path`` (a file under the
+    package's ``_build/`` when None, removed afterwards).  For the sink run,
+    where the host's time goes a superbatch (``ScanProgram.run``: the
+    launches; ``_write_keys``: formatting and writing) and, from one more
+    run under ``torch.profiler``, device busy, launches and the idle share."""
+    import os
+    from . import kernels as kernels_mod
+    from .pipeline import ScanProgram
+
+    dev = require_cuda()
+    spec = parse_transform(transform)
+    if path is None:
+        kernels_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = kernels_mod.BUILD_DIR / "bench_generate.txt"
+    start = 1 << 24
+    out = {"metric": "generate_lines_per_sec", "transform": spec.name, "seeds": seeds,
+           "batch": batch, "order_batch": ORDER_BATCH, "slots": spec.numeric.n_slots}
+    for sink, target in (("devnull", os.devnull), ("file", str(path))):
+        console = ConsoleOutput(open(target, "w"))
+        driver = ForwardDriver([spec], None, batch=batch, device=dev, output=console,
+                               order_batch=ORDER_BATCH)
+        driver.run_range(start, start + 2 * batch - 1)
+        pos = start + 2 * batch
+        acc: dict = {}
+        undo = [_wrap(ScanProgram, "run", acc, "issue"),
+                _wrap(driver, "_write_keys", acc, "write")]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = driver.run_range(pos, pos + seeds - 1)
+        console.flush()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for u in undo:
+            u()
+        out[sink] = {"lines_per_sec": res.keys_generated / secs, "lines": res.keys_generated,
+                     "seconds": secs}
+        if sink == "devnull":
+            per = seeds / batch
+            out[sink]["host_issue_ms_per_superbatch"] = acc["issue"] * 1e3 / per
+            out[sink]["host_write_ms_per_superbatch"] = acc["write"] * 1e3 / per
+            pos += seeds
+            _, events, wall_ms = _profiled(lambda: driver.run_range(pos, pos + seeds - 1), 1,
+                                           {p2pkh.KERNEL.entry, hash160.KERNEL.entry})
+            out[sink].update({f"{k}_per_superbatch": v
+                              for k, v in _breakdown(events, wall_ms, per).items()})
+        console.close()
+    os.remove(path)
+    out["device"] = torch.cuda.get_device_name(dev)
+    return out
+
+
+def seeded_words(n: int, seed: int = 7) -> list:
+    """``n`` distinct lowercase words of 4 to 14 letters from ``seed``
+    (numpy), each with its index appended."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(4, 15, n)
+    letters = rng.integers(0, 26, int(lens.sum())).astype(np.uint8) + ord("a")
+    text = letters.tobytes().decode()
+    ends = np.cumsum(lens)
+    return [f"{text[e - k:e]}{i}" for i, (e, k) in enumerate(zip(ends.tolist(), lens.tolist()))]
+
+
+def bench_strings(transform: str = "sha256", words: int = 1 << 20, pool_size: int = 4096,
+                  seed: int = 7) -> dict:
+    """Words/s and keys/s of a wordlist scan of ``transform`` through
+    ``StringDriver`` over ``words`` seeded words, a batch of
+    ``sources.STRING_BATCH`` at a time, on the host's clock, against a pool
+    of ``pool_size`` random fragments holding one planted word's address,
+    which must be found.  Where the host's time goes a batch (the keys:
+    ``StringTransform.fn``; the device match with its read; the rest) and,
+    from 16 batches under ``torch.profiler``, device busy, launches and the
+    idle share a batch."""
+    import io
+    from .sources import STRING_BATCH
+
+    dev = require_cuda()
+    spec = parse_transform(transform)
+    ws = seeded_words(words, seed)
+    planted = ws[words // 3]
+    keys = spec.string.fn([planted])
+    address = KeyDeriver().derive(keys[0, 0].astype(">u4").tobytes()).p2pkh_compressed
+    one = TargetPools.from_addresses([address])
+    rng = np.random.default_rng(seed)
+    pools = TargetPools(
+        np.concatenate([one.comp, rng.integers(-(1 << 63), 1 << 63, pool_size - 1)]),
+        np.concatenate([one.uncomp, rng.integers(-(1 << 63), 1 << 63, pool_size - 1)]),
+        one.targets)
+    acc: dict = {}
+    fn = spec.string.fn
+
+    def timed_fn(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc["keys"] = acc.get("keys", 0.0) + time.perf_counter() - t0
+
+    timed = dataclasses.replace(spec, string=dataclasses.replace(spec.string, fn=timed_fn))
+    buf = io.StringIO()
+    driver = StringDriver([timed], pools, ConsoleOutput(buf), device=dev)
+    driver.process_batch(ws[:STRING_BATCH])
+    acc.clear()
+    undo = _wrap(driver, "_device_match", acc, "match")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    matches = keys_generated = 0
+    for i in range(0, words, STRING_BATCH):
+        st = driver.process_batch(ws[i:i + STRING_BATCH])
+        matches += st.matches_found
+        keys_generated += st.keys_generated
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    undo()
+    keys_s, match_s = acc["keys"], acc["match"]
+    if matches != 1 or f"Source: {planted}{spec.string.slots[0]}\n" not in buf.getvalue():
+        raise RuntimeError(f"bench_strings {transform}: the planted word {planted!r} was "
+                           f"not found exactly once ({matches} matches)")
+    batches = -(-words // STRING_BATCH)
+    span = 16 * STRING_BATCH
+    _, events, wall_ms = _profiled(
+        lambda: [driver.process_batch(ws[i:i + STRING_BATCH]) for i in range(0, span, STRING_BATCH)],
+        1, {hash160.KERNEL.entry})
+    out = {"metric": "wordlist_scan_words_per_sec", "transform": spec.name, "words": words,
+           "words_per_sec": words / secs, "keys_per_sec": keys_generated / secs,
+           "slots": len(spec.string.slots), "pool_size": pool_size,
+           "string_batch": STRING_BATCH, "pad": driver.pad, "seconds": secs,
+           "host_keys_ms_per_batch": keys_s * 1e3 / batches,
+           "host_match_ms_per_batch": match_s * 1e3 / batches,
+           "host_other_ms_per_batch": (secs - keys_s - match_s) * 1e3 / batches}
+    out.update({f"{k}_per_batch": v for k, v in _breakdown(events, wall_ms, 16).items()})
+    out["device"] = torch.cuda.get_device_name(dev)
+    return out

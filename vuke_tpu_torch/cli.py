@@ -1,59 +1,75 @@
 """Command line of the port.
 
-    python -m vuke_tpu_torch scan [--transform T ...] --targets FILE \\
-        [--batch N] range --start A --end B
+    python -m vuke_tpu_torch generate [OPTIONS] SOURCE
+    python -m vuke_tpu_torch scan --targets FILE [OPTIONS] SOURCE
+    python -m vuke_tpu_torch single PASSPHRASE [--transform T] [--network N]
+    python -m vuke_tpu_torch warmup [--transform T ...] [--batch N] [--device D]
     python -m vuke_tpu_torch bench [--batch N] [--sequential] [--profile]
     python -m vuke_tpu_torch bench --transform T [--transform T ...] [--batch N]
     python -m vuke_tpu_torch bench --scan T [--pool N] [--batch N]
+    python -m vuke_tpu_torch bench --generate T | --strings T [--batch N]
 
-``scan`` takes every numeric transform of the JAX package's registry
-(``transforms/registry.py``; ``--transform`` may be given more than once
-and defaults to sha256) over a range source, and prints what the
-reference prints: the hit banners on stdout, ``Scanning...`` and ``Done.
-Inputs: N, Keys: K, Matches: M`` on stderr.  A range shorter than the batch
-clamps the batch to it, 1024-aligned (``vuke_tpu/cli.py:293-302``).  The
-wallet transforms and the other sources stop with a "not ported yet"
-error.  ``VUKE_TPU_SMUL13=0`` in the environment switches the scalar
-multiplication from K3 to K6 (``ecc/tiled.use_smul13``) and
-``VUKE_TPU_SEQUENTIAL=0`` turns the sequential path off
-(``ecc/incremental.use_sequential``), as they do for the JAX package.
+OPTIONS are those of ``vuke_tpu/cli.py`` that the port honours:
+``--transform`` (repeatable, default sha256), ``--network``, ``-v``,
+``-o FILE``, ``--batch``, ``--checkpoint`` and ``--device`` (cuda, the
+kernels, or cpu, the plain versions).  SOURCE is ``range --start A --end
+B``, ``wordlist --file F``, ``timestamps --start DATE --end DATE
+[--microseconds]``, ``stdin`` or ``files --file F | --dir D``.  Stdout and
+stderr are the JAX package's for the same command line (``vuke_tpu/cli.py:
+256-340, 469-514``): hit banners or key lines on stdout, in its order
+(``pipeline.ORDER_BATCH``); ``Loaded N target addresses``, ``Scanning...``
+or ``Generating keys...``, and ``Done. Inputs: N, Keys: K, Matches: M`` on
+stderr.  A range shorter than the batch clamps it, 1024-aligned.  The
+storage, cloud, Iceberg and bitimage options, the wallet transforms,
+provider targets (``boha:...``), ``analyze`` and ``query`` stop with a
+"not ported yet" error.  ``single`` runs on the host alone, as the JAX
+package's does.  ``VUKE_TPU_SMUL13=0`` in the environment switches the
+scalar multiplication from K3 to K6 and ``VUKE_TPU_SEQUENTIAL=0`` turns the
+sequential path off, as they do for the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
+import time
 
 import torch
 
+from . import encode
 from ._device import require_cuda
+from .derive import KeyDeriver
 from .matcher import TargetPools
-from .pipeline import DEFAULT_BATCH, ForwardDriver
+from .output import ConsoleOutput
+from .pipeline import DEFAULT_BATCH, ORDER_BATCH, ForwardDriver, ProcessStats, StringDriver
+from .progress import Progress
 from .transforms import NotPortedError, parse_transform
+
+# options of vuke_tpu/cli.py that the port takes and refuses: storage,
+# cloud upload, Iceberg and bitimage (their values default to None)
+NOT_PORTED_OPTIONS = (
+    ("--storage", {}), ("--chunk-records", {}), ("--chunk-bytes", {}), ("--compression", {}),
+    ("--compression-level", {}), ("--cloud-upload", {"action": "store_const", "const": True}),
+    ("--cloud-endpoint", {}), ("--cloud-bucket", {}),
+    ("--cloud-delete-local", {"action": "store_const", "const": True}),
+    ("--cloud-fail-fast", {"action": "store_const", "const": True}),
+    ("--iceberg-catalog", {}), ("--iceberg-namespace", {}), ("--iceberg-table", {}),
+    ("--bitimage-path", {}), ("--bitimage-passphrase", {}),
+    ("--bitimage-passphrase-wordlist", {}), ("--bitimage-derive-count", {}))
 
 
 def _not_ported(what: str):
     raise SystemExit(f"vuke_tpu_torch: {what} is not ported yet")
 
 
-def _print_hit(hit):
-    out = sys.stdout
-    d = hit.derived
-    out.write("\n========== HIT ==========\n")
-    out.write(f"Source: {hit.source}\n")
-    out.write(f"Transform: {hit.transform}\n")
-    out.write(f"Matched: {hit.address} ({hit.address_type})\n")
-    out.write("---\n")
-    out.write(f"Private Key: {d.private_key_hex}\n")
-    out.write(f"WIF (compressed): {d.wif_compressed}\n")
-    out.write(f"WIF (uncompressed): {d.wif_uncompressed}\n")
-    out.write("---\n")
-    out.write(f"P2PKH (compressed): {d.p2pkh_compressed}\n")
-    out.write(f"P2PKH (uncompressed): {d.p2pkh_uncompressed}\n")
-    out.write(f"P2WPKH: {d.p2wpkh}\n")
-    out.write("=========================\n")
-    out.flush()
+def _usage_error(msg: str):
+    """The last line and the exit code of the JAX command line's usage
+    errors (click's ``Error: ...``, 2)."""
+    print(f"Error: {msg}", file=sys.stderr)
+    raise SystemExit(2)
 
 
 def _device(name: str) -> torch.device:
@@ -68,15 +84,16 @@ def _parse_specs(names):
         except NotPortedError:
             _not_ported(f"transform {t!r}")
         except ValueError as e:
-            raise SystemExit(f"vuke_tpu_torch: {e}") from None
+            _usage_error(str(e))
     return specs
 
 
-def _clamp_batch(batch, total: int) -> int:
-    """The superbatch for a range of ``total`` seeds: ``batch`` (the port's
-    default when None), clamped 1024-aligned to a shorter range, with the
-    reference's note when the batch was given (``vuke_tpu/cli.py:293-302``)."""
-    size = batch or DEFAULT_BATCH
+def _clamp_batch(batch, total: int, default: int | None = None) -> int:
+    """The superbatch for a range of ``total`` seeds: ``batch`` (``default``,
+    or the port's ``DEFAULT_BATCH``, when None), clamped 1024-aligned to a
+    shorter range, with the reference's note when the batch was given
+    (``vuke_tpu/cli.py:293-302``)."""
+    size = batch or default or DEFAULT_BATCH
     if total < size:
         clamped = max(1024, -(-total // 1024) * 1024)
         if batch is not None:
@@ -86,21 +103,166 @@ def _clamp_batch(batch, total: int) -> int:
     return size
 
 
-def cmd_scan(args) -> int:
+def _make_source(args):
+    from . import sources
+
+    if args.source == "range":
+        return sources.RangeSource(args.start, args.end)
+    if args.source == "timestamps":
+        return sources.TimestampSource.from_dates(args.start, args.end, args.microseconds)
+    if args.source == "stdin":
+        return sources.StdinSource()
+    if args.source == "wordlist":
+        paths = [("--file", args.path)]
+    else:
+        if bool(args.file_path) == bool(args.dir_path):
+            _usage_error("exactly one of --file / --dir required")
+        paths = [("--file", args.file_path), ("--dir", args.dir_path)]
+    for flag, path in paths:
+        if path is not None and not os.path.exists(path):
+            _usage_error(f"Invalid value for '{flag}': Path {path!r} does not exist.")
+    if args.source == "wordlist":
+        return sources.WordlistSource(args.path)
+    return sources.FilesSource(args.file_path or args.dir_path, recursive=bool(args.dir_path))
+
+
+def _check_ported(args):
+    for flag, _ in NOT_PORTED_OPTIONS:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            _not_ported(f"option {flag}")
+
+
+def _run_forward(args, specs, source, pools) -> int:
+    """generate (``pools`` None) or scan over ``source``: the port of
+    ``vuke_tpu/cli.py::_run_forward``."""
+    from .parallel.checkpoint import SweepCheckpoint
+    from .sources import RangeSource, TimestampSource
+
+    deriver = KeyDeriver(encode.parse_network(args.network))
+    transforms = args.transform or ["sha256"]
+    dev = _device(args.device)
+    out = (ConsoleOutput.to_file(args.output_path, verbose=args.verbose) if args.output_path
+           else ConsoleOutput(verbose=args.verbose))
+    print("Scanning..." if pools is not None else "Generating keys...", file=sys.stderr)
+    label = "scan" if pools is not None else "generate"
+    ranged = isinstance(source, (RangeSource, TimestampSource))
+    fwd = None
+    if ranged:
+        total = source.end - source.start + 1
+        if getattr(source, "microseconds", False):
+            total += (source.end + 1) * 1000 - source.start * 1000
+        progress = Progress(total=total, label=label)
+        # the device superbatch, and the JAX package's, which sets the order
+        batch = _clamp_batch(args.batch, total)
+        order = batch if args.batch else _clamp_batch(None, total, ORDER_BATCH)
+        fwd = ForwardDriver(specs, pools, batch=batch, device=dev, output=out, deriver=deriver,
+                            progress=progress, order_batch=order)
+    else:
+        progress = Progress(total=None, label=label)
+    sd = StringDriver(specs, pools, out, deriver, device=dev, progress=progress)
+
+    ckpt = None
+    if args.checkpoint_path and ranged:
+        job = f"{label}:{','.join(sorted(transforms))}:{source.start}-{source.end}"
+        ckpt = SweepCheckpoint.load(args.checkpoint_path, job)
+    if ckpt is not None:
+        stats = ProcessStats()
+        chunk = order * 16
+        for s, e in ckpt.pending_ranges(source.start, source.end):
+            pos = s
+            while pos <= e:
+                ce = min(e, pos + chunk - 1)
+                stats.merge(dataclasses.replace(source, start=pos, end=ce).process(fwd, sd))
+                ckpt.mark_completed(pos, ce)
+                ckpt.save()
+                pos = ce + 1
+    else:
+        stats = source.process(fwd, sd)
+    progress.finish()
+    out.flush()
+    out.close()
+    print(f"Done. Inputs: {stats.inputs_processed}, Keys: {stats.keys_generated}, "
+          f"Matches: {stats.matches_found}", file=sys.stderr)
+    return 0
+
+
+def cmd_generate(args) -> int:
+    _check_ported(args)
     specs = _parse_specs(args.transform or ["sha256"])
-    if args.source != "range":
-        _not_ported(f"source {args.source!r}")
+    return _run_forward(args, specs, _make_source(args), None)
+
+
+def cmd_scan(args) -> int:
+    _check_ported(args)
+    specs = _parse_specs(args.transform or ["sha256"])
+    head, sep, _ = args.targets.partition(":")
+    if sep and head == "boha":
+        _not_ported("the target provider 'boha'")
+    source = _make_source(args)
     pools = TargetPools.load(args.targets)
-    if pools.unparsed:
-        print(f"warning: {len(pools.unparsed)} targets are not addresses and "
-              f"cannot match", file=sys.stderr)
-    print("Scanning...", file=sys.stderr)
-    batch = _clamp_batch(args.batch, args.end - args.start + 1)
-    res = ForwardDriver(specs, pools, batch=batch, device=_device(args.device),
-                        on_hit=_print_hit).run_range(args.start, args.end)
-    sys.stdout.flush()
-    print(f"Done. Inputs: {res.inputs_processed}, Keys: {res.keys_generated}, "
-          f"Matches: {len(res.hits)}", file=sys.stderr)
+    print(f"Loaded {pools.count()} target addresses", file=sys.stderr)
+    return _run_forward(args, specs, source, pools)
+
+
+def cmd_single(args) -> int:
+    """One passphrase through a string transform, every representation of
+    each key: ``vuke_tpu/cli.py:469-514`` line for line, on the host."""
+    try:
+        spec = parse_transform(args.transform)
+    except NotPortedError:
+        _not_ported(f"transform {args.transform!r}")
+    except ValueError as e:
+        _usage_error(str(e))
+    deriver = KeyDeriver(encode.parse_network(args.network))
+    p = args.passphrase
+    keys = []
+    if spec.string is not None:
+        kw = spec.string.fn([p], torch.device("cpu"))
+        valid = spec.string.valid_fn([p]) if spec.string.valid_fn else None
+        for s_i, slot in enumerate(spec.string.slots):
+            if valid is not None and not valid[0, s_i]:
+                continue
+            keys.append((f"{p}{slot}", kw[0, s_i].astype(">u4").tobytes()))
+    if not keys:
+        print("No key generated from passphrase.", file=sys.stderr)
+        return 0
+    for source, key in keys:
+        d = deriver.derive(key)
+        print(f'Passphrase: "{p}"\nTransform: {spec.name}\nSource: {source}\n---\n'
+              f"Private Key (hex):     {d.private_key_hex}\n"
+              f"Private Key (decimal): {d.private_key_decimal}\n"
+              f"Private Key (binary):  {d.private_key_binary}\n"
+              f"Bit Length:            {d.bit_length}\n"
+              f"Hamming Weight:        {d.hamming_weight}\n"
+              f"Leading Zeros (hex):   {d.leading_zeros}\n"
+              f"WIF (compressed):      {d.wif_compressed}\n"
+              f"WIF (uncompressed):    {d.wif_uncompressed}\n---\n"
+              f"P2PKH (compressed):   {d.p2pkh_compressed}\n"
+              f"P2PKH (uncompressed): {d.p2pkh_uncompressed}\n"
+              f"P2WPKH:               {d.p2wpkh}")
+    return 0
+
+
+def cmd_warmup(args) -> int:
+    """Build and launch once, at the batch, every kernel each transform's
+    scan of a range runs: two superbatches from seed 2 (the first below
+    batch + 2, so a sequential slot takes the keygen there and the
+    sequential path, table included, in the second)."""
+    from .kernels import Kernel
+
+    dev = _device(args.device)
+    b = args.batch or DEFAULT_BATCH
+    pools = TargetPools.from_addresses(["1BgGZ9tcN4rm9KBzDn7KprQz87SZ26SAMH"])
+    for t in args.transform or ["milksad", "direct"]:
+        spec = _parse_specs([t])[0]
+        before = {name: k.launches for name, k in Kernel.registry.items()}
+        t0 = time.perf_counter()
+        ForwardDriver([spec], pools, batch=b, device=dev).run_range(2, 2 * b + 1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launched = [name for name, k in Kernel.registry.items() if k.launches > before[name]]
+        print(f"warmed {t} at batch {b}: {', '.join(launched) or 'no kernels (plain versions)'}"
+              f" in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
     return 0
 
 
@@ -115,6 +277,12 @@ def cmd_bench(args) -> int:
         print(json.dumps(benchmark.bench_scan(args.scan, pool_size=args.pool,
                                               batch=args.batch)))
         return 0
+    if args.generate:
+        print(json.dumps(benchmark.bench_generate(args.generate, batch=args.batch)))
+        return 0
+    if args.strings:
+        print(json.dumps(benchmark.bench_strings(args.strings)))
+        return 0
     if args.sequential:
         bench, prof = benchmark.bench_sequential, benchmark.profile_sequential
     else:
@@ -125,29 +293,74 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _run_options(p: argparse.ArgumentParser):
+    p.add_argument("--transform", action="append",
+                   help="transform to apply (sha256, lcg, lcg:glibc:le, ...); may be given "
+                        "more than once; default sha256")
+    p.add_argument("--network", default="bitcoin",
+                   help="bitcoin, testnet, signet or regtest")
+    p.add_argument("--verbose", "-v", action="store_true", help="verbose key blocks")
+    p.add_argument("--output", "-o", dest="output_path", default=None,
+                   help="output file (default: stdout)")
+    p.add_argument("--batch", type=int, default=None,
+                   help=f"seeds per superbatch (default {DEFAULT_BATCH}, clamped to short "
+                        f"ranges)")
+    p.add_argument("--checkpoint", dest="checkpoint_path", default=None,
+                   help="manifest of the completed seed ranges, skipped on a rerun "
+                        "(numeric sources)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (the plain versions)")
+    for flag, kw in NOT_PORTED_OPTIONS:
+        p.add_argument(flag, default=None, help="not ported yet", **kw)
+
+
+def _sources(p: argparse.ArgumentParser):
+    src = p.add_subparsers(dest="source", required=True)
+    rng = src.add_parser("range", help="inclusive u64 seed range")
+    rng.add_argument("--start", type=int, required=True)
+    rng.add_argument("--end", type=int, required=True)
+    words = src.add_parser("wordlist", help="one string a line")
+    words.add_argument("--file", dest="path", required=True)
+    ts = src.add_parser("timestamps", help="unix seconds of a date range (UTC)")
+    ts.add_argument("--start", required=True, help="start date (YYYY-MM-DD)")
+    ts.add_argument("--end", required=True, help="end date (YYYY-MM-DD)")
+    ts.add_argument("--microseconds", action="store_true", help="also test milliseconds")
+    src.add_parser("stdin", help="one string a line on standard input")
+    files = src.add_parser("files", help="each file's path as a string")
+    files.add_argument("--file", dest="file_path", default=None)
+    files.add_argument("--dir", dest="dir_path", default=None)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m vuke_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
+    gen = sub.add_parser("generate", help="generate keys and print every one")
+    _run_options(gen)
+    _sources(gen)
+    gen.set_defaults(func=cmd_generate)
+
     scan = sub.add_parser("scan", help="forward search against target addresses")
-    scan.add_argument("--transform", action="append",
-                      help="transform to apply (sha256, lcg, lcg:glibc:le, ...); may be "
-                           "given more than once; default sha256")
+    _run_options(scan)
     scan.add_argument("--targets", required=True, help="file of target addresses")
-    scan.add_argument("--batch", type=int, default=None,
-                      help=f"seeds per superbatch (default {DEFAULT_BATCH}, clamped to "
-                           f"short ranges)")
-    scan.add_argument("--device", default="cuda",
-                      help="cuda (the kernels) or cpu (the plain versions)")
-    src = scan.add_subparsers(dest="source", required=True)
-    rng = src.add_parser("range", help="inclusive u64 seed range")
-    rng.add_argument("--start", type=int, required=True)
-    rng.add_argument("--end", type=int, required=True)
-    for name in ("timestamps", "wordlist", "stdin", "files"):
-        src.add_parser(name, help="not ported yet")
+    _sources(scan)
     scan.set_defaults(func=cmd_scan)
 
-    bench = sub.add_parser("bench", help="derive, keygen or scan rate on the card")
+    single = sub.add_parser("single", help="every representation of one passphrase's key")
+    single.add_argument("passphrase")
+    single.add_argument("--transform", default="sha256")
+    single.add_argument("--network", default="bitcoin")
+    single.set_defaults(func=cmd_single)
+
+    warm = sub.add_parser("warmup", help="build and launch the scan kernels once")
+    warm.add_argument("--transform", action="append",
+                      help="transform to warm (repeatable; default milksad and direct)")
+    warm.add_argument("--batch", type=int, default=None,
+                      help=f"superbatch to warm (default {DEFAULT_BATCH})")
+    warm.add_argument("--device", default="cuda")
+    warm.set_defaults(func=cmd_warmup)
+
+    bench = sub.add_parser("bench", help="derive, keygen, scan or generate rate on the card")
     bench.add_argument("--batch", type=int, default=DEFAULT_BATCH)
     bench.add_argument("--sequential", action="store_true",
                        help="the sequential scan's rate (direct:be) instead of "
@@ -162,9 +375,15 @@ def build_parser() -> argparse.ArgumentParser:
                             "pipelined driver, with its profile, instead")
     bench.add_argument("--pool", type=int, default=4096,
                        help="fragments in the target pool of --scan (default 4096)")
+    bench.add_argument("--generate", metavar="TRANSFORM",
+                       help="lines/s of generate over a range with this transform, into "
+                            "a discarding sink and into a file, with its profile, instead")
+    bench.add_argument("--strings", metavar="TRANSFORM",
+                       help="words/s and keys/s of a wordlist scan with this transform, "
+                            "with its profile, instead")
     bench.set_defaults(func=cmd_bench)
 
-    for name in ("generate", "warmup", "single", "analyze", "query"):
+    for name in ("analyze", "query"):
         sub.add_parser(name, help="not ported yet").set_defaults(
             func=lambda a, n=name: _not_ported(f"command {n!r}"))
     return p

@@ -1,18 +1,22 @@
-"""MD5 of one-block messages of a per-lane length, over int64-held u32 words.
+"""MD5 over int64-held u32 words.
 
 Counterpart of ``vuke_tpu/cores/md5.py`` and of
-``vuke_tpu/cores/decimal.py::md5_single_block_varlen``.  MD5 reads its
-message as little-endian words and returns 4 little-endian state words:
-serialized little-endian they are the digest's bytes.
+``vuke_tpu/cores/decimal.py::md5_single_block_varlen``: one-block messages
+of a per-lane length, and byte strings padded on the host
+(``pad_message``) and digested block by block (``md5_blocks``, the plain
+version of the string-digest kernel's md5 mode).  MD5 reads its message as
+little-endian words and returns 4 little-endian state words: serialized
+little-endian they are the digest's bytes.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from .._device import MASK32, byteswap32, rotl32
+from .._device import MASK32, byteswap32, i64, rotl32, u32
 
 K = tuple(int(abs(math.sin(i + 1)) * 2**32) & MASK32 for i in range(64))
 S = (7, 12, 17, 22) * 4 + (5, 9, 14, 20) * 4 + (4, 11, 16, 23) * 4 + (6, 10, 15, 21) * 4
@@ -46,3 +50,23 @@ def md5_single_block_varlen(words_be, length: torch.Tensor):
     m = [byteswap32(words_be[i]) if i < len(words_be) else 0 for i in range(14)]
     m = [w | torch.where(widx == i, term, 0) for i, w in enumerate(m)]
     return compress(IV, m + [length * 8, 0])
+
+
+def pad_message(data: bytes) -> np.ndarray:
+    """MD5 padding of a byte message -> (B, 16) uint32 LE words: the 0x80
+    byte, zeros, and the bit length as 8 LE bytes."""
+    ml = len(data)
+    padded = data + b"\x80"
+    padded += b"\x00" * ((-(len(padded) + 8)) % 64)
+    padded += (ml * 8 & 0xFFFFFFFFFFFFFFFF).to_bytes(8, "little")
+    return np.frombuffer(padded, dtype="<u4").astype(np.uint32).reshape(-1, 16)
+
+
+def md5_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Padded messages of B blocks each, (M, B, 16) LE words -> (M, 4)
+    uint32 LE digest words."""
+    w = i64(blocks)
+    state = list(IV)
+    for b in range(w.shape[1]):
+        state = compress(state, [w[:, b, j] for j in range(16)])
+    return u32(torch.stack([x + w[:, 0, 0] * 0 for x in state], dim=1))

@@ -1,18 +1,22 @@
-"""SHA-256 of short messages over int64-held u32 words.
+"""SHA-256 over int64-held u32 words.
 
-Counterpart of the parts of ``vuke_tpu/cores/sha256.py`` and
+Counterpart of ``vuke_tpu/cores/sha256.py`` and of the parts of
 ``vuke_tpu/cores/decimal.py`` the numeric transforms use: one-block
 messages of a fixed length (``sha256_words``, ``sha256_key_words``) and of
-a per-lane length (``sha256_single_block_varlen``).  The compression is
-K2's plain one (``cores/hash160.py``); words are big-endian message words,
-int64 tensors or Python ints.
+a per-lane length (``sha256_single_block_varlen``); and for the string
+transforms, byte strings padded on the host (``pad_message``) and digested
+block by block (``sha256_blocks``), the plain version of the string-digest
+kernel (``cores/digest.py``).  The compression is K2's plain one
+(``cores/hash160.py``); words are big-endian message words, int64 tensors
+or Python ints.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .._device import MASK32
+from .._device import MASK32, i64, u32
 from .hash160 import SHA_IV, _sha_compress
 
 
@@ -39,3 +43,23 @@ def sha256_single_block_varlen(words, length: torch.Tensor):
     block = [(words[i] if i < len(words) else 0) | torch.where(widx == i, term, 0)
              for i in range(14)]
     return _sha_compress(SHA_IV, block + [0, length * 8])
+
+
+def pad_message(data: bytes) -> np.ndarray:
+    """SHA-256 padding of a byte message -> (B, 16) uint32 BE words: the
+    0x80 byte, zeros, and the bit length as 8 BE bytes."""
+    ml = len(data)
+    padded = data + b"\x80"
+    padded += b"\x00" * ((-(len(padded) + 8)) % 64)
+    padded += (ml * 8).to_bytes(8, "big")
+    return np.frombuffer(padded, dtype=">u4").astype(np.uint32).reshape(-1, 16)
+
+
+def sha256_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Padded messages of B blocks each, (M, B, 16) words -> (M, 8) uint32
+    digest words."""
+    w = i64(blocks)
+    state = list(SHA_IV)
+    for b in range(w.shape[1]):
+        state = _sha_compress(state, [w[:, b, j] for j in range(16)])
+    return u32(torch.stack([x + w[:, 0, 0] * 0 for x in state], dim=1))

@@ -35,16 +35,46 @@ def point_add(p1, p2):
     return (x3, y3)
 
 
+def _jdouble(X, Y, Z):
+    if Y == 0:
+        return 0, 1, 0
+    YY = Y * Y % P
+    S = 4 * X * YY % P
+    M = 3 * X * X % P
+    X3 = (M * M - 2 * S) % P
+    return X3, (M * (S - X3) - 8 * YY * YY) % P, 2 * Y * Z % P
+
+
+def _jadd_affine(X, Y, Z, x2, y2):
+    """(X, Y, Z) + (x2, y2), Jacobian plus affine."""
+    if Z == 0:
+        return x2, y2, 1
+    ZZ = Z * Z % P
+    H = (x2 * ZZ - X) % P
+    R = (y2 * ZZ * Z - Y) % P
+    if H == 0:
+        return _jdouble(X, Y, Z) if R == 0 else (0, 1, 0)
+    HH = H * H % P
+    HHH = H * HH % P
+    V = X * HH % P
+    X3 = (R * R - HHH - 2 * V) % P
+    return X3, (R * (V - X3) - Y * HHH) % P, Z * H % P
+
+
 def point_mul(k: int, p=(GX, GY)):
+    """k * p (affine, None for the point at infinity): double-and-add from
+    the top bit in Jacobian coordinates, one inversion at the end."""
     k %= N
-    result = None
-    addend = p
-    while k:
-        if k & 1:
-            result = point_add(result, addend)
-        addend = point_add(addend, addend)
-        k >>= 1
-    return result
+    X, Y, Z = 0, 1, 0
+    for bit in bin(k)[2:] if k else "":
+        X, Y, Z = _jdouble(X, Y, Z)
+        if bit == "1":
+            X, Y, Z = _jadd_affine(X, Y, Z, *p)
+    if Z == 0:
+        return None
+    zi = _inv(Z)
+    zi2 = zi * zi % P
+    return X * zi2 % P, Y * zi2 * zi % P
 
 
 def pubkey_compressed(k: int) -> bytes:

@@ -190,6 +190,22 @@ class Network:
 
 
 BITCOIN = Network("bitcoin", 0x00, 0x80, "bc")
+TESTNET = Network("testnet", 0x6F, 0xEF, "tb")
+SIGNET = Network("signet", 0x6F, 0xEF, "tb")
+REGTEST = Network("regtest", 0x6F, 0xEF, "bcrt")
+
+NETWORKS = {n.name: n for n in (BITCOIN, TESTNET, SIGNET, REGTEST)}
+
+
+def parse_network(s: str) -> Network:
+    """A ``--network`` name (any case) -> its Network; an unknown name warns
+    on stderr and gives mainnet."""
+    net = NETWORKS.get(s.lower())
+    if net is None:
+        import sys
+        print(f"Warning: unknown network '{s}', using bitcoin mainnet", file=sys.stderr)
+        return BITCOIN
+    return net
 
 
 def p2pkh_address(h160: bytes, network: Network = BITCOIN) -> str:

@@ -530,3 +530,47 @@ def keygen_chain(digits: float, variant: int = -1, depth: int = 10) -> Ops:
                 block = [None] + words + [0] * (14 - len(words)) + [0, (4 + len(tail)) * 8]
             sha256_block(t, SHA_IV, block)
     return t.ops + decimal(digits)
+
+
+def digest(mode: str, blocks: float) -> Ops:
+    """D1 per string in ``mode`` (sha256, double_sha256, md5) for strings
+    of ``blocks`` compressions on average (their bytes plus the padding, in
+    64-byte blocks: this run's data): the first block from the known IV,
+    the rest from the lane's state (csrc/digest.cu); forming the message
+    words is layout, not counted."""
+    lane = [None] * 16
+    t1, tn = Trace(), Trace()
+    if mode == "md5":
+        md5_block(t1, [0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476], lane)
+        md5_block(tn, [None] * 4, lane)
+    else:
+        sha256_block(t1, SHA_IV, lane)
+        sha256_block(tn, [None] * 8, lane)
+        if mode == "double_sha256":
+            sha256_block(t1, SHA_IV, [None] * 8 + [0x80000000] + [0] * 6 + [256])
+    return t1.ops + (blocks - 1) * tn.ops
+
+
+def digest_chain(depth: int) -> Ops:
+    """D1's chain mode per key: ``depth - 1`` SHA-256s of a 32-byte key."""
+    t = Trace()
+    sha256_block(t, SHA_IV, [None] * 8 + [0x80000000] + [0] * 6 + [256])
+    return (depth - 1) * t.ops
+
+
+def p2pkh() -> Ops:
+    """D2 per lane (csrc/p2pkh.cu): the 21-byte payload's 6 message words
+    (a funnel shift each), SHA-256 of it and of its digest; then base58 of
+    the 200-bit number: seven divisions by 58^5, each over the limbs still
+    non-zero (7, 6, ..., 1: 28 steps of a 64-by-32-bit division by a
+    constant, a 64-bit multiply-high (4 wide products), the quotient's
+    shift, the remainder's wide product and subtract), five digits from
+    each remainder (4 divisions by 58: a multiply-high, the remainder's
+    multiply-add, a shift) and each of 34 characters from its digit (5
+    compares and selects)."""
+    t = Trace()
+    words = [t.funnel(None, None, 8) for _ in range(6)]
+    state = sha256_block(t, SHA_IV, words + [0] * 9 + [168])
+    sha256_block(t, SHA_IV, state + [0x80000000] + [0] * 6 + [256])
+    return (t.ops + 28 * Ops(mul=2 * 4 + 2, alu=1, add=6) + 28 * Ops(mul=3, alu=1)
+            + 34 * Ops(alu=5))

@@ -14,17 +14,36 @@ and an equality test.  The TPU's compare-all branch (``matcher.py:176-179``)
 was a gather-cost choice of that chip and is not ported: at N = 2^19
 against 8192 entries it would materialize ~4 G booleans here.  Device
 false positives (8-byte collisions) are filtered by the host string
-confirm, as in the JAX package.
+confirm, ``TargetPools.check`` (``vuke_tpu.matcher.Matcher.check``), as
+in the JAX package; ``AddressType`` and ``MatchInfo`` are its result.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from dataclasses import dataclass
+from enum import Enum
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
 from . import encode
+from .derive import DerivedKey
+
+
+class AddressType(Enum):
+    P2PKH_COMPRESSED = "p2pkh_compressed"
+    P2PKH_UNCOMPRESSED = "p2pkh_uncompressed"
+    P2WPKH = "p2wpkh"
+
+    def as_str(self) -> str:
+        return self.value
+
+
+@dataclass
+class MatchInfo:
+    address_type: AddressType
+    address: str
 
 
 def pack_fragments_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
@@ -83,6 +102,20 @@ class TargetPools:
         with open(path) as f:
             return cls.from_addresses(
                 s for s in (line.strip() for line in f) if s and not s.startswith("#"))
+
+    def count(self) -> int:
+        """Distinct target lines, unparseable ones included (``Loaded N
+        target addresses``)."""
+        return len(self.targets)
+
+    def check(self, derived: DerivedKey) -> Optional[MatchInfo]:
+        """The host confirm: the first of the compressed p2pkh, the
+        uncompressed p2pkh and the p2wpkh address that is a target."""
+        for kind in AddressType:
+            addr = getattr(derived, kind.value)
+            if addr in self.targets:
+                return MatchInfo(kind, addr)
+        return None
 
     def on(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
         key = str(device)

@@ -1,0 +1,137 @@
+"""Input sources: range, timestamps, wordlist, stdin and files.
+
+The port's copy of ``vuke_tpu/sources.py``.  Numeric sources (range,
+timestamps) are seed lattices driven by ``pipeline.ForwardDriver``;
+string sources stream host batches of ``STRING_BATCH`` through
+``pipeline.StringDriver``, which fixes their output order.  The JAX
+package also feeds string-only transforms (the wallet ones) the decimal
+strings of a numeric range; no port transform is string-only, so a
+numeric source runs the numeric driver alone.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+import os
+import sys
+from dataclasses import dataclass
+from typing import Iterator, List, Tuple
+
+from .pipeline import ProcessStats
+
+STRING_BATCH = 1000
+
+
+@dataclass
+class RangeSource:
+    """The inclusive u64 range [start, end]."""
+    start: int
+    end: int
+
+    def process(self, numeric_driver, string_driver=None) -> ProcessStats:
+        return numeric_driver.run_range(self.start, self.end)
+
+
+@dataclass
+class TimestampSource:
+    """A date range as unix seconds [start, end]; with ``microseconds``
+    also the millisecond lattice [start * 1000, (end + 1) * 1000 - 1]."""
+    start: int
+    end: int
+    microseconds: bool = False
+
+    @classmethod
+    def from_dates(cls, start_date: str, end_date: str, microseconds: bool = False):
+        """YYYY-MM-DD dates in UTC: the first second of the start day to
+        the last second of the end day."""
+        start = int(_dt.datetime.strptime(start_date, "%Y-%m-%d")
+                    .replace(tzinfo=_dt.timezone.utc).timestamp())
+        end_day = _dt.datetime.strptime(end_date, "%Y-%m-%d").replace(
+            hour=23, minute=59, second=59, tzinfo=_dt.timezone.utc)
+        return cls(start, int(end_day.timestamp()), microseconds)
+
+    def process(self, numeric_driver, string_driver=None) -> ProcessStats:
+        stats = numeric_driver.run_range(self.start, self.end)
+        if self.microseconds:
+            stats.merge(numeric_driver.run_range(self.start * 1000,
+                                                 (self.end + 1) * 1000 - 1))
+        return stats
+
+
+@dataclass
+class WordlistSource:
+    """The lines of a file, decoded as UTF-8 (bad bytes replaced),
+    stripped, empty ones skipped."""
+    path: str
+
+    def words(self) -> List[str]:
+        with open(self.path, encoding="utf-8", errors="replace") as f:
+            return [w for w in (line.strip() for line in f) if w]
+
+    def process(self, numeric_driver, string_driver) -> ProcessStats:
+        stats = ProcessStats()
+        words = self.words()
+        for i in range(0, len(words), STRING_BATCH):
+            stats.merge(string_driver.process_batch(words[i:i + STRING_BATCH]))
+        return stats
+
+
+@dataclass
+class StdinSource:
+    """Standard input's stripped non-empty lines, in batches of
+    ``STRING_BATCH`` as they arrive."""
+
+    def process(self, numeric_driver, string_driver) -> ProcessStats:
+        stats = ProcessStats()
+        batch: List[str] = []
+        for line in sys.stdin:
+            s = line.strip()
+            if not s:
+                continue
+            batch.append(s)
+            if len(batch) >= STRING_BATCH:
+                stats.merge(string_driver.process_batch(batch))
+                batch = []
+        if batch:
+            stats.merge(string_driver.process_batch(batch))
+        return stats
+
+
+@dataclass
+class FilesSource:
+    """A file, or the files of a directory (recursive: its whole tree),
+    sorted, symlinks skipped; each is one input, its path the label."""
+    path: str
+    recursive: bool = False
+
+    def entries(self) -> List[str]:
+        if os.path.isfile(self.path):
+            return [self.path]
+        out: List[str] = []
+        if self.recursive:
+            for root, dirs, files in os.walk(self.path, followlinks=False):
+                for f in sorted(files):
+                    p = os.path.join(root, f)
+                    if not os.path.islink(p):
+                        out.append(p)
+        else:
+            for f in sorted(os.listdir(self.path)):
+                p = os.path.join(self.path, f)
+                if os.path.isfile(p) and not os.path.islink(p):
+                    out.append(p)
+        return out
+
+    def blobs(self) -> Iterator[Tuple[bytes, str]]:
+        for p in self.entries():
+            try:
+                with open(p, "rb") as f:
+                    yield f.read(), p
+            except OSError as e:
+                print(f"Warning: failed to read {p}: {e}", file=sys.stderr)
+
+    def process(self, numeric_driver, string_driver) -> ProcessStats:
+        stats = ProcessStats()
+        for data, label in self.blobs():
+            stats.inputs_processed += 1
+            stats.merge(string_driver.process_blob(data, label))
+        return stats

@@ -1,21 +1,23 @@
 """Transform registry: the reference's ``name:variant:endian`` grammar.
 
-The port's copy of ``vuke_tpu/transforms/registry.py::parse_transform`` for
-the numeric transforms: every name and alias it accepts, and every error
-message it raises, word for word.  A spec bundles the display name that a
-hit prints (``Transform: ...``) and the numeric transform.  The wallet
-transforms (armory, multibit, electrum[:change], bitimage) raise
-``NotPortedError``; the string path over wordlist, stdin and file sources
-is not ported either.
+The port's copy of ``vuke_tpu/transforms/registry.py::parse_transform``:
+every name and alias it accepts, and every error message it raises, word
+for word.  A spec bundles the display name that a hit prints
+(``Transform: ...``), the numeric transform (a seed lattice) and, where
+the JAX package gives one, the string transform (wordlist, stdin and file
+sources, ``single``): direct, direct:str, sha256, double_sha256, md5 and
+sha256_chain.  The wallet transforms (armory, multibit, electrum[:change],
+bitimage) raise ``NotPortedError``.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 from ..cores import lcg as lcg_core, sha256_chain as chain_core
-from . import numeric
+from . import numeric, strings
 
 _XS_ALIASES = {
     "64": "xorshift64", "xorshift64": "xorshift64",
@@ -41,6 +43,7 @@ class NotPortedError(NotImplementedError):
 class TransformSpec:
     name: str                            # display name (Transform::name)
     numeric: numeric.NumericTransform    # device lattice path
+    string: Optional[strings.StringTransform] = None   # string sources
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,17 +51,16 @@ def parse_transform(s: str) -> TransformSpec:
     """Parse a ``--transform`` value; repeated parses return the same spec."""
     sl = s.lower()
     if sl == "direct":
-        return TransformSpec("direct", numeric.DIRECT)
+        return TransformSpec("direct", numeric.DIRECT, strings.make_string_direct())
     if sl in ("direct:be", "direct:le", "direct:str"):
         nt = {"be": numeric.DIRECT_BE, "le": numeric.DIRECT_LE,
               "str": numeric.DIRECT_STR}[sl.split(":")[1]]
-        return TransformSpec("direct", nt)
-    if sl == "sha256":
-        return TransformSpec("sha256", numeric.SHA256)
-    if sl == "double_sha256":
-        return TransformSpec("double_sha256", numeric.DOUBLE_SHA256)
-    if sl == "md5":
-        return TransformSpec("md5", numeric.MD5)
+        st = strings.make_string_direct() if sl.endswith(":str") else None
+        return TransformSpec("direct", nt, st)
+    if sl in ("sha256", "double_sha256", "md5"):
+        nt = {"sha256": numeric.SHA256, "double_sha256": numeric.DOUBLE_SHA256,
+              "md5": numeric.MD5}[sl]
+        return TransformSpec(sl, nt, strings.make_string_hash(sl))
     if sl == "milksad":
         return TransformSpec("milksad", numeric.MILKSAD)
     if sl == "mt64":
@@ -75,7 +77,8 @@ def parse_transform(s: str) -> TransformSpec:
     if sl == "sha256_chain" or sl.startswith("sha256_chain:"):
         variant, depth = _parse_chain(sl)
         name = f"sha256_chain:{variant}" if variant else "sha256_chain"
-        return TransformSpec(name, numeric.make_sha256_chain(variant, depth))
+        return TransformSpec(name, numeric.make_sha256_chain(variant, depth),
+                             strings.make_string_sha256_chain(variant, depth))
     raise ValueError(
         f"Unknown transform: {s}. Valid: direct, sha256, double_sha256, md5, "
         f"milksad, mt64, armory, multibit, electrum[:change], "
