@@ -97,7 +97,28 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    D1 runs on the path, with one planted key;
    7e. ``timestamps --microseconds`` over one day (86,486,400 seeds) with
    a hit planted in the millisecond lattice; stdin and files scans in
-   subprocesses.
+   subprocesses;
+8. ``analyze`` on the card, with S1 (``csrc/sweep_prng.cu``, the PRNG
+   families' keystream and compare fused) and S2 (``csrc/sweep_chain.cu``,
+   the sha256 chains'):
+   8a. S1 in every family, variant and mode (exact, mask of 64 and 12 bits,
+   cascades of 5 and 2 targets with the first-filter count) and S2 in every
+   variant and mode at depth 10, against their plain versions on 2^20 lanes
+   with hits planted in the middle lane and the last, across the carry into
+   the high word (mt64, xorshift) and the u32 wrap (chains): the records
+   must be equal; then each kernel's time at the sweeps' batches (S1 2^24,
+   S2 2^22) beside its plain version's and its bound;
+   8b. ``analyze`` through the command line over the full spaces, keys from
+   the host oracles: milksad exact (seed 2^32 - 17, then a random key:
+   NOT_FOUND over 2^32), ``--mask 40``, lcg planted in borland near its
+   max_seed, sha256_chain:iterated at depth 10 planted at chain index 7,
+   mt64 and xorshift (xorshift128+) with a ``--cascade`` from a planted
+   seed's keys and ``--max-seeds 2^32``, the default ``analyze KEY`` (every
+   analyzer), ``--puzzle boha:b1000:40:3``, ``--cascade boha:b1000:67``,
+   ``--verify boha:b1000``, and ``--checkpoint`` over the first half, then
+   resumed to the planted seed; each with its seeds/s and launches;
+   8c. ``scan --transform direct:be --targets boha:b1000:solved`` over
+   [2^20, 2^32 - 1]: exactly puzzles 21..32, and the provider's stderr.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
@@ -125,7 +146,10 @@ from vuke_tpu_torch.benchmark import (bench_derive, bench_sequential, device_ms,
                                       kernel_cases, profile_derive, profile_sequential,
                                       time_cuda)
 from vuke_tpu_torch.benchmark import bench_generate, bench_scan, bench_strings
-from vuke_tpu_torch.cores import digest, hash160, keygen, lcg, mt19937, p2pkh, sha256_chain
+from vuke_tpu_torch.analyze.key_parser import apply_mask
+from vuke_tpu_torch.analyze.sweeps import CARD_SWEEP_BATCH
+from vuke_tpu_torch.cores import (digest, hash160, keygen, lcg, mt19937, p2pkh, sha256_chain,
+                                  sweep)
 from vuke_tpu_torch.derive import KeyDeriver
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
@@ -142,12 +166,18 @@ KERNELS = {"mt19937": mt19937.KERNEL, "normalize": scalar.KERNEL, "smul": smul.K
 KEYGEN = {"keygen_hash": keygen.HASH_KERNEL, "keygen_prng": keygen.PRNG_KERNEL,
           "keygen_chain": keygen.CHAIN_KERNEL}
 STRING_KERNELS = {"digest": digest.KERNEL, "p2pkh": p2pkh.KERNEL}
-ALL_KERNELS = KERNELS | KEYGEN | STRING_KERNELS
+SWEEP_KERNELS = {"sweep_prng": sweep.PRNG_KERNEL, "sweep_chain": sweep.CHAIN_KERNEL}
+ALL_KERNELS = KERNELS | KEYGEN | STRING_KERNELS | SWEEP_KERNELS
 N_STRINGS = 1 << 16
 GEN_SEEDS = 70_000
 WORDS = 1 << 20
 CHAIN_WORDS = 1 << 14
 DAY = "2015-06-01"
+SPACE = 1 << 32
+# the lanes of a sweep batch on the main path (analyze/analyzers.py): S1 takes the
+# card's batch, S2 a quarter of it
+S1_LANES = CARD_SWEEP_BATCH
+S2_LANES = CARD_SWEEP_BATCH // 4
 MILKSAD_PATH = ("mt19937", "smul", "inv_affine", "hash160")
 SLOT_PATH = ("normalize", "smul", "inv_affine", "hash160")
 KEYGEN_MODE = {"keygen_hash": "sha256", "keygen_prng": "lcg, four variants",
@@ -266,15 +296,16 @@ def host_lcg_key(seed: int, v, big_endian: bool = True) -> bytes:
     return out
 
 
-def host_mt64_key(seed: int) -> bytes:
-    """MT19937-64 (init_genrand64, then the twist of the first four state
-    words): its first 4 tempered outputs, serialized little-endian."""
+def host_mt64_key(seed: int, n_keys: int = 1) -> bytes:
+    """MT19937-64 (init_genrand64, then the twist of the first state
+    words): its first 4 x ``n_keys`` tempered outputs, serialized
+    little-endian (``n_keys`` keys of 32 bytes)."""
     m64 = (1 << 64) - 1
     mt = [seed & m64]
     for i in range(1, 312):
         mt.append((6364136223846793005 * (mt[-1] ^ (mt[-1] >> 62)) + i) & m64)
     out = b""
-    for i in range(4):
+    for i in range(4 * n_keys):
         y = (mt[i] & 0xFFFFFFFF80000000) | (mt[i + 1] & 0x7FFFFFFF)
         x = mt[i + 156] ^ (y >> 1) ^ (0xB5026F5AA96619E9 if y & 1 else 0)
         x ^= (x >> 29) & 0x5555555555555555
@@ -283,6 +314,32 @@ def host_mt64_key(seed: int) -> bytes:
         x ^= x >> 43
         out += x.to_bytes(8, "little")
     return out
+
+
+def host_xorshift128p_keys(seed: int, n_keys: int) -> list:
+    """The first ``n_keys`` keys of the reference's "xorshift128+" (a
+    xoroshiro128 state from two splitmix64 steps, outputs s0 + s1 written
+    big-endian; a zero seed becomes 1)."""
+    m64 = (1 << 64) - 1
+
+    def splitmix(x):
+        x = (x + 0x9E3779B97F4A7C15) & m64
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m64
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m64
+        return x ^ (x >> 31)
+
+    def rotl(x, k):
+        return ((x << k) | (x >> (64 - k))) & m64
+
+    s0 = splitmix(seed or 1)
+    s1 = splitmix(s0)
+    out = b""
+    for _ in range(4 * n_keys):
+        out += ((s0 + s1) & m64).to_bytes(8, "big")
+        s1 ^= s0
+        s0 = rotl(s0, 24) ^ s1 ^ ((s1 << 16) & m64)
+        s1 = rotl(s1, 37)
+    return [out[32 * j:32 * j + 32] for j in range(n_keys)]
 
 
 def host_chain_key(message: bytes, variant: str, d: int) -> bytes:
@@ -1303,22 +1360,25 @@ def p2pkh_digests(rng, n: int) -> torch.Tensor:
 def launch_device_ms(fn, kern, iters: int = 20) -> float:
     """Device milliseconds of one launch of ``kern`` under
     ``torch.profiler``, ``fn`` launching it once a call: its recorded time
-    over the launches recorded (CUPTI drops one launch of a window now and
-    then)."""
+    over the launches recorded.  CUPTI drops one launch of a window now and
+    then, and now and then most of one (as ``benchmark._profiled`` sees):
+    a window that records fewer than half the launches runs again, three
+    times at most, and then this raises."""
     from torch.profiler import ProfilerActivity, profile
     from vuke_tpu_torch.benchmark import _device_events
 
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    ms, n = _device_events(prof, 1).get(kern.entry, (0.0, 0))
-    if n < iters // 2:
-        raise RuntimeError(f"torch.profiler recorded {n} of {iters} launches of {kern.name}")
-    return ms / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms, n = _device_events(prof, 1).get(kern.entry, (0.0, 0))
+        if n >= iters // 2:
+            return ms / n
+    raise RuntimeError(f"torch.profiler recorded {n} of {iters} launches of {kern.name}")
 
 
 def launched_once(kern, fn):
@@ -1651,6 +1711,387 @@ def phase_timestamps(dev, rng, card: str, decoys: list) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: analyze on the card, S1 and S2
+# ---------------------------------------------------------------------------
+
+def key_words(key: bytes) -> list:
+    return [int.from_bytes(key[4 * i:4 * i + 4], "big") for i in range(8)]
+
+
+def words_key(words) -> bytes:
+    return b"".join((int(w) & 0xFFFFFFFF).to_bytes(4, "big") for w in words)
+
+
+def plain_keys(family: str, variant: int, be: bool, seed: int, n_keys: int) -> list:
+    """The first ``n_keys`` keys (bytes) of one seed's stream, from the plain
+    keystreams on the CPU."""
+    hi, lo = torch.tensor([seed >> 32]), torch.tensor([seed & 0xFFFFFFFF])
+    return [words_key(k) for k in sweep.prng_keys_plain(family, variant, be, hi, lo, n_keys)]
+
+
+def plain_chain(variant: str, seed: int, depth: int) -> list:
+    s = torch.tensor([seed & 0xFFFFFFFF])
+    return [words_key(k) for k in sha256_chain.chain([s], torch.full_like(s, 4), variant, depth)]
+
+
+def sweep_compares(keys_mid: list, keys_last: list, cascade: bool, track: bool = True) -> list:
+    """exact and 64-bit mask on the middle lane's key 0, exact and a 12-bit
+    mask (many earlier hits) on the last lane's; cascades of 5 targets from
+    the middle lane's keys and 2 from the last lane's, the first filter
+    tracked (S1)."""
+    cmp = [sweep.Compare("exact", words=tuple(key_words(keys_mid[0]))),
+           sweep.Compare("exact", words=tuple(key_words(keys_last[0]))),
+           sweep.Compare("mask", targets=((64, apply_mask(keys_mid[0], 64)),)),
+           sweep.Compare("mask", targets=((12, apply_mask(keys_last[0], 12)),))]
+    if cascade:
+        cmp += [sweep.Compare("cascade", track=track, targets=tuple(
+                    (b, apply_mask(k, b)) for b, k in zip((4, 8, 12, 16, 20), keys_mid))),
+                sweep.Compare("cascade", track=track, targets=tuple(
+                    (b, apply_mask(k, b)) for b, k in zip((6, 30), keys_last)))]
+    return cmp
+
+
+def sweep_against_plain(dev, rng, n_prng: int = S1_LANES, n_chain: int = S2_LANES) -> dict:
+    """S1 in every family, variant and mode on ``n_prng`` lanes and S2 in
+    every variant and mode at depth 10 on ``n_chain`` (by default the
+    batches the analyzers give them on the card), each against its plain
+    version on the card on the same lanes: the 64-bit families from (5 << 32) + 2^32 - n/2 (the carry
+    mid-batch), milksad and the LCGs the top n seeds of the u32 space, the
+    chains from 2^32 - n/2 (the u32 wrap); hits planted in the middle lane
+    and the last.  Records (first hit, first-filter count) must be equal;
+    returns {kernel: (cases, max abs err)}."""
+    got = torch.empty(2, dtype=torch.int64, device=dev)
+    want = torch.empty(2, dtype=torch.int64, device=dev)
+    out = {}
+
+    def hold(name, kern, fn, plain, cmp, planted: int):
+        before = kern.launches
+        fn(got, cmp)
+        torch.cuda.synchronize()
+        if kern.launches != before + 1:
+            raise AssertionError(f"{name}: {kern.launches - before} launches, expected 1")
+        plain(want, cmp)
+        g, w = got.tolist(), want.tolist()
+        if g != w or not 0 <= g[0] <= planted:
+            raise AssertionError(f"{name} {cmp.mode} {cmp.targets or cmp.words}: kernel {g}, "
+                                 f"plain {w}, planted at {planted}")
+        cases, err = out.get(kern.name, (0, 0))
+        out[kern.name] = (cases + 1, max(err, abs(g[0] - w[0]), abs(g[1] - w[1])))
+
+    off = int(rng.integers(0, 64))
+    n = n_prng
+    mid = n // 2 + off
+    for family in sweep.FAMILIES:
+        wide = family in ("mt64", "xorshift")
+        start = ((5 << 32) + SPACE - n // 2) if wide else SPACE - n
+        streams = ([(v, be) for v in range(4) for be in (True, False)] if family == "lcg"
+                   else [(v, True) for v in range(4 if family == "xorshift" else 1)])
+        for v, be in streams:
+            nk = 1 if family == "lcg" else 5
+            cmps = sweep_compares(plain_keys(family, v, be, start + mid, nk),
+                                  plain_keys(family, v, be, start + n - 1, nk),
+                                  family != "lcg")
+            for j, cmp in enumerate(cmps):
+                hold(f"S1 {family}:{v}:{'be' if be else 'le'}", sweep.PRNG_KERNEL,
+                     lambda r, c: sweep.sweep_prng(r, start, n, family, v, be, c),
+                     lambda r, c: sweep.sweep_prng_plain(r, start, n, family, v, be, c),
+                     cmp, mid if j % 2 == 0 else n - 1)
+    n = n_chain
+    mid = n // 2 + off
+    start = SPACE - n // 2
+    for v in sweep.CHAIN_VARIANTS:
+        km, kl = plain_chain(v, start + mid, 10), plain_chain(v, start + n - 1, 10)
+        cmps = sweep_compares([km[7]], [kl[9]], False)
+        cmps += sweep_compares(km[:5], kl[:2], True, track=False)[4:]
+        for j, cmp in enumerate(cmps):
+            depth = cmp.n_targets if cmp.mode == "cascade" else 10
+            last = (n - 1) * (1 if cmp.mode == "cascade" else 10) + (9 if j in (1, 3) else 0)
+            planted = mid * (1 if cmp.mode == "cascade" else 10) + (7 if j in (0, 2) else 0)
+            hold(f"S2 {v}", sweep.CHAIN_KERNEL,
+                 lambda r, c: sweep.sweep_chain(r, start, n, v, depth, c),
+                 lambda r, c: sweep.sweep_chain_plain(r, start, n, v, depth, c),
+                 cmp, planted if j % 2 == 0 else last)
+    return out
+
+
+def sweep_timing(dev, card: str, int_ops_per_s: float) -> dict:
+    """Each S1 family in its analyzer's mode on S1_LANES seeds and S2 in each
+    variant (exact, depth 10) on S2_LANES: CUDA events, device time
+    (profiler), the plain version on the card (its record must equal the
+    kernel's), and the bound from ``kernels/work.py``.  The targets are
+    random, so a cascade's key j reaches the lanes that pass the targets
+    before it, the product of their 2^-(bits - 1).  Returns the kernels
+    line's numbers: milksad exact for S1, iterated for S2."""
+    rng = np.random.default_rng(8)
+    rec = torch.empty(2, dtype=torch.int64, device=dev)
+    want = torch.empty_like(rec)
+    rnd = tuple(int(x) for x in rng.integers(0, 1 << 32, 8))
+    cascade = tuple((b, int(rng.integers(0, 1 << (b - 1))) | 1 << (b - 1)) for b in (8, 16, 24))
+    times = {}
+
+    def plain_run(plain, what: str) -> float:
+        t0 = time.perf_counter()
+        plain(want)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if rec.tolist() != want.tolist():
+            raise AssertionError(f"{what}: kernel {rec.tolist()}, plain {want.tolist()}")
+        return plain_ms
+
+    n = S1_LANES
+    for family, v, cmp in (("milksad", 0, sweep.Compare("exact", words=rnd)),
+                           ("mt64", 0, sweep.Compare("cascade", targets=cascade, track=True)),
+                           ("lcg", 3, sweep.Compare("exact", words=rnd)),
+                           ("xorshift", 2, sweep.Compare("cascade", targets=cascade, track=True))):
+        start = 1 << 40 if family in ("mt64", "xorshift") else 0
+        fn = lambda: sweep.sweep_prng(rec, start, n, family, v, True, cmp)
+        ms = time_cuda(fn, iters=10, warmup=2)
+        dev_ms = launch_device_ms(fn, sweep.PRNG_KERNEL, iters=10)
+        plain_ms = plain_run(lambda r: sweep.sweep_prng_plain(r, start, n, family, v, True, cmp),
+                             f"S1 {family}:{v} {cmp.mode}")
+        reach = [1.0]
+        for b, _ in cmp.targets[:-1]:
+            reach.append(reach[-1] * 2.0 ** (1 - b))
+        ops = work.sweep_prng(family, cmp.mode, v, True, reach)
+        bound_ms, bound_by, limit = bound_of(16, ops, n, int_ops_per_s)
+        say(f"[8a time] S1 {family}:{v} {cmp.mode} on {n} seeds: kernel {ms:.4f} ms (CUDA "
+            f"events), {dev_ms:.4f} ms device (profiler), {n / dev_ms / 1e6:.3f} G seeds/s; "
+            f"plain {plain_ms:.1f} ms, record == the kernel's; bound {bound_ms:.4f} ms by "
+            f"{limit} ({100 * bound_ms / dev_ms:.1f}% of the device time; a lane needs "
+            f"{ops.mul:.1f} multiplies, {ops.alu:.1f} ALU, {ops.add:.1f} adds; further keys "
+            f"reach {[f'{r:.3g}' for r in reach[1:]]}) [{card}]")
+        if family == "milksad":
+            times["sweep_prng"] = (ms, plain_ms, bound_ms, bound_by)
+    n = S2_LANES
+    for v in sweep.CHAIN_VARIANTS:
+        cmp = sweep.Compare("exact", words=rnd)
+        fn = lambda: sweep.sweep_chain(rec, 0, n, v, 10, cmp)
+        ms = time_cuda(fn, iters=5, warmup=1)
+        dev_ms = launch_device_ms(fn, sweep.CHAIN_KERNEL, iters=5)
+        plain_ms = plain_run(lambda r: sweep.sweep_chain_plain(r, 0, n, v, 10, cmp),
+                             f"S2 {v} exact")
+        ops = work.sweep_chain(v, "exact", [1.0] * 10)
+        bound_ms, bound_by, limit = bound_of(16, ops, n, int_ops_per_s)
+        say(f"[8a time] S2 {v} exact, depth 10, on {n} seeds: kernel {ms:.4f} ms (CUDA "
+            f"events), {dev_ms:.4f} ms device (profiler), {n / dev_ms / 1e6:.3f} G seeds/s; "
+            f"plain {plain_ms:.1f} ms, record == the kernel's; bound {bound_ms:.4f} ms by "
+            f"{limit} ({100 * bound_ms / dev_ms:.1f}% of the device time; a lane needs "
+            f"{ops.alu:.0f} ALU, {ops.add:.0f} adds) [{card}]")
+        if v == "iterated":
+            times["sweep_chain"] = (ms, plain_ms, bound_ms, bound_by)
+    return times
+
+
+def phase_sweep_kernels(dev, rng, card: str, int_ops_per_s: float):
+    """8a: S1 and S2 against their plain versions on the main path's
+    batches, then their times."""
+    t0 = time.perf_counter()
+    held = sweep_against_plain(dev, rng)
+    say(f"[8a S1, S2] the main path's batches, hits planted in the middle lane and the last: "
+        f"S1 {held['sweep_prng'][0]} cases on {S1_LANES} lanes (milksad, mt64, lcg x4 x BE/LE, "
+        f"xorshift x4; exact, mask 64 and 12 bits, cascades of 5 and 2 targets with the first "
+        f"filter; mt64 and xorshift across the carry into the high word), S2 "
+        f"{held['sweep_chain'][0]} cases on {S2_LANES} lanes (4 variants at depth 10 across "
+        f"the u32 wrap): first hit and first-filter count == plain on every case (max abs "
+        f"err 0); {time.perf_counter() - t0:.1f} s")
+    times = sweep_timing(dev, card, int_ops_per_s)
+    return {k: err for k, (_, err) in held.items()}, times
+
+
+def analyze_cli(argv: list, what: str, seeds: int, card: str, want_err: str | None = None):
+    """One ``analyze`` through the command line (launch counts reset, read
+    after); its stderr must be ``want_err`` (default: the ``Running``
+    lines of its analyzers); prints its seeds/s.  Returns (stdout,
+    launches)."""
+    rc, text, log, launches, secs = run_cli(["analyze", *argv])
+    if rc != 0 or (want_err is not None and log != want_err):
+        raise AssertionError(f"analyze {what}: rc {rc}, stderr {log!r}\n{text}")
+    say(f"[8b analyze] {what}: {seeds} seeds in {secs:.3f} s, {seeds / secs:.0f} seeds/s "
+        f"(host wall clock, the process's start excluded); launches S1 "
+        f"{launches['sweep_prng']}, S2 {launches['sweep_chain']} [{card}]")
+    return text, launches
+
+
+def result_line(text: str, name: str) -> str:
+    for line in text.splitlines():
+        if line.startswith("  ") and line[4:].startswith(f"{name}: "):
+            return line[4 + len(name) + 2:]
+    raise AssertionError(f"no {name} line in:\n{text}")
+
+
+def phase_analyze(dev, rng, card: str) -> list:
+    """8b: ``analyze`` through the command line at full width, planted keys
+    from the host oracles; every run's launch counts."""
+    from vuke_tpu_torch import provider
+
+    runs = []
+    running = lambda *names: "".join(f"Running {n} (brute-force)...\n" for n in names)
+
+    def expect(text, name, status, details):
+        got = result_line(text, name)
+        if got != f"{status} ({details})":
+            raise AssertionError(f"analyze {name}: {got!r}, expected {status} ({details})")
+
+    seed = SPACE - 17
+    text, l = analyze_cli(["0x" + host_milksad_key(seed).hex(), "--analyzer", "milksad"],
+                          "milksad exact, key of seed 2^32 - 17", SPACE, card, running("milksad"))
+    expect(text, "milksad", "CONFIRMED", f"seed = {seed}")
+    runs.append(l)
+    text, l = analyze_cli([rng.bytes(32).hex(), "--analyzer", "milksad"],
+                          "milksad exact, a random key", SPACE, card, running("milksad"))
+    expect(text, "milksad", "NOT_FOUND", f"checked {SPACE} seeds")
+    runs.append(l)
+
+    planted = SPACE - 1000 - int(rng.integers(0, 1000))
+    key = rng.bytes(24) + host_milksad_key(planted)[24:]
+    text, l = analyze_cli([key.hex(), "--analyzer", "milksad", "--mask", "40"],
+                          "milksad --mask 40", SPACE, card, running("milksad"))
+    found = int(result_line(text, "milksad").split("seed = ")[1].split(",")[0])
+    if found > planted or apply_mask(host_milksad_key(found), 40) != apply_mask(key, 40):
+        raise AssertionError(f"milksad --mask 40: seed {found}, planted {planted}")
+    full = host_milksad_key(found).hex()
+    expect(text, "milksad", "CONFIRMED",
+           f"seed = {found}, full_key={full}, masked=0x{apply_mask(key, 40):x}, mask_bits=40, "
+           f"formula=(key & 0xffffffffff) | 0x8000000000")
+    runs.append(l)
+
+    seed = lcg.BORLAND.max_seed - int(rng.integers(1, 1 << 16))
+    seeds = sum(min(v.max_seed, SPACE - 1) + 1 for v in lcg.ALL_VARIANTS[:3]) + seed + 1
+    text, l = analyze_cli([host_lcg_key(seed, lcg.BORLAND).hex(), "--analyzer", "lcg"],
+                          "lcg, planted in borland near its max_seed", seeds, card,
+                          running("lcg"))
+    expect(text, "lcg", "CONFIRMED", f"variant=borland, seed={seed}, endian=be")
+    runs.append(l)
+
+    seed = SPACE - 1 - int(rng.integers(1, 1 << 16))
+    key = host_chain_key(seed.to_bytes(4, "big"), "iterated", 7)
+    text, l = analyze_cli([key.hex(), "--analyzer", "sha256_chain:iterated"],
+                          "sha256_chain:iterated, depth 10, planted near the top at index 7",
+                          seed + 1, card, running("sha256_chain"))
+    expect(text, "sha256_chain", "CONFIRMED",
+           f"seed={seed} (0x{seed:08x}), variant=iterated, chain_index=7")
+    runs.append(l)
+
+    seed = SPACE - 1 - int(rng.integers(1, 1 << 20))
+    keys = [host_mt64_key(seed, 3)[32 * j:32 * j + 32] for j in range(3)]
+    cascade = ",".join(f"{b}:0x{apply_mask(k, b):x}" for b, k in zip((24, 32, 40), keys))
+    text, l = analyze_cli([rng.bytes(32).hex(), "--analyzer", "mt64", "--cascade", cascade,
+                           "--max-seeds", str(SPACE)], "mt64 --cascade of 3 from a planted seed",
+                          seed + 1, card, running("mt64"))
+    desc = ",".join(f"P{b}:0x{apply_mask(k, b):x}" for b, k in zip((24, 32, 40), keys))
+    expect(text, "mt64", "CONFIRMED", f"seed = {seed}, cascade=[{desc}]")
+    runs.append(l)
+
+    seed = SPACE - 1 - int(rng.integers(1, 1 << 20))
+    keys = host_xorshift128p_keys(seed, 3)
+    cascade = ",".join(f"{b}:0x{apply_mask(k, b):x}" for b, k in zip((24, 32, 40), keys))
+    desc = ",".join(f"P{b}:0x{apply_mask(k, b):x}" for b, k in zip((24, 32, 40), keys))
+    text, l = analyze_cli([rng.bytes(32).hex(), "--analyzer", "xorshift", "--cascade", cascade,
+                           "--max-seeds", str(SPACE)],
+                          "xorshift --cascade of 3 from a planted xorshift128+ seed",
+                          3 * SPACE + seed + 1, card, running("xorshift"))
+    expect(text, "xorshift", "CONFIRMED",
+           f"variant=xorshift128+, seed={seed}, cascade=[{desc}]")
+    runs.append(l)
+
+    key = rng.bytes(32)
+    rc, text, log, launches, secs = run_cli(["analyze", key.hex(), "--json"])
+    got = {r["analyzer"]: (r["status"], r.get("details")) for r in json.loads(text)["results"]}
+    lcg_seeds = sum(min(v.max_seed, SPACE - 1) + 1 for v in lcg.ALL_VARIANTS)
+    if (rc != 0 or log != running("milksad", "mt64", "lcg", "xorshift", "sha256_chain")
+            or got["milksad"] != ("not_found", f"checked {SPACE} seeds")
+            or got["mt64"][0] != "unknown" or got["xorshift"][0] != "unknown"
+            or got["lcg"] != ("not_found", f"checked {lcg_seeds} seeds across variants: "
+                                           f"glibc, minstd, msvc, borland")
+            or got["sha256_chain"] != ("not_found", f"checked {4 * SPACE} seeds, variants="
+                                                    f"[iterated, indexed:be, indexed:le, "
+                                                    f"counter], chain_depth=10")
+            or list(got) != ["milksad", "mt64", "lcg", "xorshift", "sha256_chain", "direct",
+                             "heuristic"]):
+        raise AssertionError(f"default analyze: rc {rc}, stderr {log!r}\n{text}")
+    say(f"[8b analyze] the default analyze of a random key, every analyzer (milksad 2^32, "
+        f"lcg x4, sha256_chain x4 over 2^32 x depth 10; mt64 and xorshift UNKNOWN without a "
+        f"cascade): {secs:.3f} s host wall clock; launches S1 {launches['sweep_prng']}, S2 "
+        f"{launches['sweep_chain']} [{card}]")
+    runs.append(launches)
+
+    b1000 = {p.id: p for p in provider._collection("b1000")}
+    key = bytes.fromhex(b1000[40].key_hex.rjust(64, "0"))
+    text, l = analyze_cli([key.hex(), "--puzzle", "boha:b1000:40:3", "--analyzer", "milksad"],
+                          "--puzzle boha:b1000:40:3 (mask 40, cascade of 3)", SPACE, card,
+                          "Puzzle boha:b1000:40:3: auto-set mask to 40 bits\n"
+                          "Puzzle boha:b1000:40:3: cascade from 3 solved neighbors\n"
+                          + running("milksad"))
+    expect(text, "milksad", "NOT_FOUND", f"checked {SPACE} seeds with cascade filter")
+    runs.append(l)
+    text, l = analyze_cli([key.hex(), "--cascade", "boha:b1000:67", "--analyzer", "mt64",
+                           "--max-seeds", str(SPACE)],
+                          "--cascade boha:b1000:67 (puzzles 62 and 63)", SPACE, card,
+                          running("mt64"))
+    c = provider.parse_cascade_ref("boha:b1000:67")
+    line = result_line(text, "mt64")
+    if (len(c) != 2 or not line.startswith(f"NOT_FOUND (searched {SPACE} seeds in ")
+            or f"cascade=[{','.join(f'P{b}:0x{t:x}' for b, t in c)}], cascade_hits=" not in line):
+        raise AssertionError(f"--cascade boha:b1000:67: {line}")
+    runs.append(l)
+    p21 = b1000[21]
+    rc, text, log, _, _ = run_cli(["analyze", p21.key_hex, "--verify", "boha:b1000", "--fast"])
+    if rc != 0 or not text.startswith(f"Key matches puzzle #21 in b1000 via p2pkh_compressed: "
+                                      f"{p21.address}\n"):
+        raise AssertionError(f"--verify boha:b1000: {text!r}")
+    say(f"[8b analyze] --verify boha:b1000 with puzzle 21's key: 'Key matches puzzle #21 in "
+        f"b1000 via p2pkh_compressed: {p21.address}' [{card}]")
+
+    ckpt = kernels.BUILD_DIR / "smoke_analyze_ckpt.json"
+    ckpt.unlink(missing_ok=True)
+    seed = SPACE - 1 - int(rng.integers(1, 1 << 20))
+    key = host_milksad_key(seed)
+    argv = [key.hex(), "--analyzer", "milksad", "--checkpoint", str(ckpt)]
+    text, l = analyze_cli(argv + ["--max-seeds", str(SPACE // 2)],
+                          "milksad --checkpoint, the first half", SPACE // 2, card,
+                          running("milksad"))
+    expect(text, "milksad", "NOT_FOUND", f"checked {SPACE // 2} seeds")
+    manifest = json.loads(ckpt.read_text())
+    if manifest["completed"] != [[0, SPACE // 2 - 1]] or manifest["found_seed"] is not None:
+        raise AssertionError(f"checkpoint after the first half: {manifest}")
+    runs.append(l)
+    text, l = analyze_cli(argv, "milksad --checkpoint, resumed", seed + 1 - SPACE // 2, card,
+                          running("milksad"))
+    expect(text, "milksad", "CONFIRMED", f"seed = {seed}")
+    if json.loads(ckpt.read_text())["found_seed"] != seed:
+        raise AssertionError("checkpoint: the found seed is not in the manifest")
+    runs.append(l)
+    return runs
+
+
+def phase_provider_scan(card: str) -> dict:
+    """8c: ``scan --transform direct:be --targets boha:b1000:solved`` over
+    [2^20, 2^32 - 1]: exactly the solved puzzles whose key lies there."""
+    from vuke_tpu_torch import provider
+
+    b1000 = {p.id: p for p in provider._collection("b1000")}
+    res = provider.resolve("boha:b1000:solved")
+    lo, hi = 1 << 20, SPACE - 1
+    want = sorted(p.id for p in b1000.values()
+                  if p.solved and p.address and lo <= int(p.key_hex, 16) <= hi)
+    rc, text, log, launches, secs = run_cli(
+        ["scan", "--transform", "direct:be", "--targets", "boha:b1000:solved", "range",
+         "--start", str(lo), "--end", str(hi)])
+    hits = sorted(int(s) for s, _ in hit_sources(text))
+    n = hi - lo + 1
+    done = (f"Loaded {len(res.addresses)} target addresses from provider boha:b1000:solved\n"
+            f"Scanning...\nDone. Inputs: {n}, Keys: {n}, Matches: {len(want)}\n")
+    if (rc != 0 or log != done or res.skipped_offline != 0
+            or hits != sorted(int(b1000[i].key_hex, 16) for i in want)):
+        raise AssertionError(f"scan boha:b1000:solved: rc {rc}, stderr {log!r}, hits {hits}")
+    say(f"[8c provider scan] direct:be [2^20, 2^32 - 1] vs boha:b1000:solved "
+        f"({len(res.addresses)} addresses, {res.skipped_offline} skipped): exactly puzzles "
+        f"{want[0]}..{want[-1]} ({len(want)} hits); {n / secs:.0f} keys/s ({secs:.2f} s host "
+        f"wall clock); launches {launches} [{card}]")
+    return launches
+
+
 def main() -> int:
     dev, card, int_ops_per_s = phase_environment()
     rng = np.random.default_rng(20261016)
@@ -1672,6 +2113,10 @@ def main() -> int:
     errs["p2pkh"], times["p2pkh"] = phase_p2pkh(dev, rng, card, int_ops_per_s)
     runs += ([phase_generate(dev, rng, card)] + phase_wordlist(dev, rng, card, decoys)
              + [phase_timestamps(dev, rng, card, decoys)])
+    sweep_errs, sweep_times = phase_sweep_kernels(dev, rng, card, int_ops_per_s)
+    errs |= sweep_errs
+    times |= sweep_times
+    runs += phase_analyze(dev, rng, card) + [phase_provider_scan(card)]
     summary = {"kernels": [
         {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": sum(run[name] for run in runs), "max_abs_err": errs[name],

@@ -288,3 +288,23 @@ def test_p2pkh_kernel_matches_plain(dev, version):
     got = p2pkh.batch_p2pkh(h.to(dev), version)
     assert p2pkh.KERNEL.launches == before + 1
     assert torch.equal(got.cpu(), p2pkh.batch_p2pkh_plain(h, version))
+
+
+def test_sweep_kernels_match_plain(dev):
+    """S1 (every family, variant and mode) and S2 (every variant and mode at
+    depth 10) against their plain versions on the card, 4096 lanes across
+    the carry and the u32 wrap, hits planted (chip_smoke phase 8a)."""
+    held = chip_smoke.sweep_against_plain(dev, np.random.default_rng(3), 4096, 4096)
+    assert held == {"sweep_prng": (68, 0), "sweep_chain": (24, 0)}
+
+
+def test_sweep_launch_failure_raises(dev):
+    """A launch the C entry refuses (family 9) raises; the record is left
+    to the caller and nothing runs the plain version instead."""
+    from vuke_tpu_torch.cores import sweep
+
+    rec = torch.empty(2, dtype=torch.int64, device=dev)
+    targets = sweep.Compare("exact", words=(0,) * 8).packed
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        sweep.PRNG_KERNEL.launch(dev, 0, 0, 1024, 9, 0, 1, 0, 1, 0, targets.ctypes.data,
+                                 rec.data_ptr())

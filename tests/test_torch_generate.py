@@ -176,7 +176,7 @@ def test_checkpoint_resumes_and_a_rerun_does_nothing(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["generate", "--storage", "out", "range", "--start", "1", "--end", "2"],
     ["generate", "--cloud-upload", "range", "--start", "1", "--end", "2"],
-    ["scan", "--targets", "boha:b1000:unsolved", "range", "--start", "1", "--end", "2"],
+    ["analyze", "0x1", "--analyzer", "multibit-hd", "--device", "cpu"],
     ["generate", "--transform", "armory", "range", "--start", "1", "--end", "2"],
     ["query"],
 ])

@@ -152,6 +152,8 @@ assert {'vuke_tpu_torch.transforms.numeric', 'vuke_tpu_torch.transforms.registry
 assert {'vuke_tpu_torch.' + m for m in ('transforms.strings', 'cores.digest', 'cores.p2pkh',
         'output', 'output.console', 'output.multi', 'progress', 'parallel',
         'parallel.checkpoint', 'sources')} <= set(names), names
+assert {'vuke_tpu_torch.' + m for m in ('provider', 'analyze', 'analyze.analyzers',
+        'analyze.key_parser', 'analyze.output', 'analyze.sweeps', 'cores.sweep')} <= set(names)
 for name in names + ['chip_smoke']:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

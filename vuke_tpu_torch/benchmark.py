@@ -631,3 +631,79 @@ def bench_strings(transform: str = "sha256", words: int = 1 << 20, pool_size: in
     out.update({f"{k}_per_batch": v for k, v in _breakdown(events, wall_ms, 16).items()})
     out["device"] = torch.cuda.get_device_name(dev)
     return out
+
+
+ANALYZE_FAMILIES = ("milksad", "mt64", "lcg", "xorshift", "sha256_chain")
+
+
+def bench_analyze(family: str = "milksad", mode: str = "exact", max_seeds: int = 1 << 32,
+                  batch: int | None = None, seed: int = 7) -> dict:
+    """Seeds/s of one reverse analyzer's sweeps on the card: the
+    ``analyze`` analyzer of ``family`` (every variant of lcg, xorshift and
+    sha256_chain in turn, as ``analyze --analyzer F`` runs them) over its
+    whole space, each 2^64 space bounded by ``max_seeds`` (at least 2^32),
+    against a seeded random key that no seed gives, in ``mode`` (exact,
+    mask: 40 bits, or cascade: 3 random targets of 8, 16 and 24 bits;
+    mt64 and xorshift take only cascade), on the host's clock after a
+    warm-up batch.  ``seeds`` counts the seeds swept (a sha256_chain seed
+    is 10 chain positions).  Then where 16 batches' time goes on the card
+    (``torch.profiler``): each kernel's device ms, device busy, launches and
+    the idle share a batch."""
+    from .analyze import analyzers as A
+    from .analyze import sweeps
+    from .cores import sweep as S
+
+    if family not in ANALYZE_FAMILIES:
+        raise ValueError(f"bench_analyze: unknown family {family!r}; one of {ANALYZE_FAMILIES}")
+    if family in ("mt64", "xorshift") and mode != "cascade":
+        raise ValueError(f"bench_analyze: {family} sweeps a 2^64 space under a cascade only")
+    dev = require_cuda()
+    rng = np.random.default_rng(seed)
+    key = rng.bytes(32)
+    make = {"milksad": A.MilksadAnalyzer, "mt64": A.Mt64Analyzer, "lcg": A.LcgAnalyzer,
+            "xorshift": A.XorshiftAnalyzer, "sha256_chain": A.Sha256ChainAnalyzer}[family]
+    batch = batch or sweeps.CARD_SWEEP_BATCH
+    config = A.AnalysisConfig(batch=batch, max_seeds=max_seeds, device=dev.type)
+    if mode == "mask":
+        config.mask_bits = 40
+    elif mode == "cascade":
+        config.cascade_targets = [(b, int(rng.integers(0, 1 << (b - 1))) | 1 << (b - 1))
+                                  for b in (8, 16, 24)]
+    kern = S.CHAIN_KERNEL if family == "sha256_chain" else S.PRNG_KERNEL
+    searched = []
+    sweep_fn = sweeps.sweep
+
+    def counted(*a, **k):
+        r = sweep_fn(*a, **k)
+        searched.append(r.searched)
+        return r
+
+    sweeps.sweep = counted
+    try:
+        make().analyze(key, dataclasses.replace(config, max_seeds=batch))
+        torch.cuda.synchronize()
+        searched.clear()
+        t0 = time.perf_counter()
+        result = make().analyze(key, config)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        sweeps.sweep = sweep_fn
+    if result.status != A.AnalysisStatus.NOT_FOUND:
+        raise RuntimeError(f"bench_analyze {family}: a random key gave {result}")
+    # the profile: 16 batches of one variant
+    one = {"lcg": lambda: A.LcgAnalyzer(A.lcg_core.BORLAND),
+           "xorshift": lambda: A.XorshiftAnalyzer("xorshift128+"),
+           "sha256_chain": lambda: A.Sha256ChainAnalyzer("iterated")}.get(family, make)()
+    span = dataclasses.replace(config, max_seeds=16 * (
+        batch // 4 if family == "sha256_chain" else batch))
+    _, events, wall_ms = _profiled(lambda: one.analyze(key, span), 1, {kern.entry})
+    searched = sum(searched)
+    out = {"metric": "analyze_seeds_per_sec", "family": family, "mode": mode,
+           "seeds": searched, "seconds": secs, "seeds_per_sec": searched / secs,
+           "batch": batch if family != "sha256_chain" else batch // 4,
+           "chain_positions_per_seed": 10 if family == "sha256_chain" else None,
+           "details": result.details}
+    out.update({f"{k}_per_batch": v for k, v in _breakdown(events, wall_ms, 16).items()})
+    out["device"] = torch.cuda.get_device_name(dev)
+    return out

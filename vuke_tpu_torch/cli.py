@@ -8,6 +8,10 @@
     python -m vuke_tpu_torch bench --transform T [--transform T ...] [--batch N]
     python -m vuke_tpu_torch bench --scan T [--pool N] [--batch N]
     python -m vuke_tpu_torch bench --generate T | --strings T [--batch N]
+    python -m vuke_tpu_torch bench --analyze F [--mode M]
+    python -m vuke_tpu_torch analyze KEY [--fast] [--mask N] [--cascade C]
+        [--analyzer A ...] [--chain-depth D] [--puzzle P] [--verify C] [--json]
+        [--batch N] [--max-seeds N] [--checkpoint FILE] [--device D]
 
 OPTIONS are those of ``vuke_tpu/cli.py`` that the port honours:
 ``--transform`` (repeatable, default sha256), ``--network``, ``-v``,
@@ -19,9 +23,12 @@ stderr are the JAX package's for the same command line (``vuke_tpu/cli.py:
 256-340, 469-514``): hit banners or key lines on stdout, in its order
 (``pipeline.ORDER_BATCH``); ``Loaded N target addresses``, ``Scanning...``
 or ``Generating keys...``, and ``Done. Inputs: N, Keys: K, Matches: M`` on
-stderr.  A range shorter than the batch clamps it, 1024-aligned.  The
-storage, cloud, Iceberg and bitimage options, the wallet transforms,
-provider targets (``boha:...``), ``analyze`` and ``query`` stop with a
+stderr.  A range shorter than the batch clamps it, 1024-aligned.
+``--targets`` takes a file or a provider reference (``boha:...``,
+``provider.py``).  ``analyze`` is ``vuke_tpu/cli.py:543-575``: every
+option, its stdout and stderr, its sweeps on the card (S1 and S2) unless
+``--device cpu``.  The storage, cloud, Iceberg and bitimage options, the
+wallet transforms, the multibit-hd analyzer and ``query`` stop with a
 "not ported yet" error.  ``single`` runs on the host alone, as the JAX
 package's does.  ``VUKE_TPU_SMUL13=0`` in the environment switches the
 scalar multiplication from K3 to K6 and ``VUKE_TPU_SEQUENTIAL=0`` turns the
@@ -70,6 +77,13 @@ def _usage_error(msg: str):
     errors (click's ``Error: ...``, 2)."""
     print(f"Error: {msg}", file=sys.stderr)
     raise SystemExit(2)
+
+
+def _fail(msg: str):
+    """The last line and the exit code of the JAX command line's own
+    errors (click's ``ClickException``: ``Error: ...``, 1)."""
+    print(f"Error: {msg}", file=sys.stderr)
+    raise SystemExit(1)
 
 
 def _device(name: str) -> torch.device:
@@ -195,13 +209,33 @@ def cmd_generate(args) -> int:
 def cmd_scan(args) -> int:
     _check_ported(args)
     specs = _parse_specs(args.transform or ["sha256"])
-    head, sep, _ = args.targets.partition(":")
-    if sep and head == "boha":
-        _not_ported("the target provider 'boha'")
     source = _make_source(args)
-    pools = TargetPools.load(args.targets)
-    print(f"Loaded {pools.count()} target addresses", file=sys.stderr)
-    return _run_forward(args, specs, source, pools)
+    return _run_forward(args, specs, source, _load_targets(args.targets))
+
+
+def _load_targets(t: str) -> TargetPools:
+    """A target file, or a provider reference resolved to its addresses,
+    with the JAX command line's stderr (``vuke_tpu/cli.py:360-383``)."""
+    from . import provider
+
+    resolved = provider.resolve(t)
+    if resolved is None:
+        pools = TargetPools.load(t)
+        print(f"Loaded {pools.count()} target addresses", file=sys.stderr)
+        return pools
+    if not resolved.addresses:
+        # a scan against zero targets finds nothing by construction
+        _fail(f"{resolved.description} resolved to 0 usable addresses"
+              + (f" ({resolved.skipped_offline} matching entries ship "
+                 f"address: null in the offline dataset — see "
+                 f"tools/build_puzzles.py provenance notes)"
+                 if resolved.skipped_offline else ""))
+    if resolved.skipped_offline:
+        print(f"warning: {resolved.skipped_offline} matching puzzles have "
+              f"no offline address and are NOT scanned for", file=sys.stderr)
+    pools = TargetPools.from_addresses(resolved.addresses)
+    print(f"Loaded {pools.count()} target addresses from provider {t}", file=sys.stderr)
+    return pools
 
 
 def cmd_single(args) -> int:
@@ -266,9 +300,28 @@ def cmd_warmup(args) -> int:
     return 0
 
 
+def cmd_analyze(args) -> int:
+    """``analyze KEY``: ``vuke_tpu/cli.py:543-575`` and ``run_analyze``."""
+    from .analyze import run_analyze
+
+    if args.mask is not None and not 1 <= args.mask <= 64:
+        _usage_error(f"Invalid value for '--mask': {args.mask} is not in the range 1<=x<=64.")
+    dev = _device(args.device)
+    run_analyze(key_str=args.key, fast=args.fast, mask=args.mask, cascade=args.cascade,
+                analyzers=list(args.analyzers or ()), mnemonic=args.mnemonic,
+                mnemonic_file=args.mnemonic_file, passphrase=args.passphrase,
+                chain_depth=args.chain_depth, puzzle=args.puzzle, verify=args.verify,
+                as_json=args.as_json, batch=args.batch, max_seeds=args.max_seeds,
+                checkpoint=args.checkpoint_path, device=dev.type)
+    return 0
+
+
 def cmd_bench(args) -> int:
     from . import benchmark
 
+    if args.analyze:
+        print(json.dumps(benchmark.bench_analyze(args.analyze, args.mode)), flush=True)
+        return 0
     if args.transform:
         for name in args.transform:
             print(json.dumps(benchmark.bench_transform(name, batch=args.batch)), flush=True)
@@ -342,7 +395,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     scan = sub.add_parser("scan", help="forward search against target addresses")
     _run_options(scan)
-    scan.add_argument("--targets", required=True, help="file of target addresses")
+    scan.add_argument("--targets", required=True,
+                      help="target addresses: a file or a provider (e.g. boha:b1000:unsolved)")
     _sources(scan)
     scan.set_defaults(func=cmd_scan)
 
@@ -381,11 +435,40 @@ def build_parser() -> argparse.ArgumentParser:
     bench.add_argument("--strings", metavar="TRANSFORM",
                        help="words/s and keys/s of a wordlist scan with this transform, "
                             "with its profile, instead")
+    bench.add_argument("--analyze", metavar="FAMILY",
+                       help="seeds/s of a reverse sweep of this family (milksad, mt64, lcg, "
+                            "xorshift, sha256_chain) over 2^32 seeds or more, with each "
+                            "kernel's device ms, instead")
+    bench.add_argument("--mode", default="exact", choices=("exact", "mask", "cascade"),
+                       help="the --analyze sweep's compare (default exact)")
     bench.set_defaults(func=cmd_bench)
 
-    for name in ("analyze", "query"):
-        sub.add_parser(name, help="not ported yet").set_defaults(
-            func=lambda a, n=name: _not_ported(f"command {n!r}"))
+    an = sub.add_parser("analyze", help="analyze a private key for vulnerable origins")
+    an.add_argument("key")
+    an.add_argument("--fast", action="store_true", help="skip brute-force checks")
+    an.add_argument("--mask", type=int, default=None, help="bits of the key known (1-64)")
+    an.add_argument("--cascade", default=None, help="bits:target,bits:target,... or boha:...")
+    an.add_argument("--analyzer", dest="analyzers", action="append",
+                    help="analyzer to run (repeatable; default all)")
+    an.add_argument("--mnemonic", default=None, help="not ported yet (multibit-hd)")
+    an.add_argument("--mnemonic-file", default=None, help="not ported yet (multibit-hd)")
+    an.add_argument("--passphrase", default="")
+    an.add_argument("--chain-depth", type=int, default=10)
+    an.add_argument("--puzzle", default=None, help="boha:collection:id[:n]")
+    an.add_argument("--verify", default=None, help="boha:collection")
+    an.add_argument("--json", dest="as_json", action="store_true")
+    an.add_argument("--batch", type=int, default=None,
+                    help="sweep batch (default 2^24 on the card, 2^20 on the CPU)")
+    an.add_argument("--max-seeds", type=int, default=None,
+                    help="bound open-ended sweeps (default unbounded)")
+    an.add_argument("--checkpoint", dest="checkpoint_path", default=None,
+                    help="manifest path for durable brute-force progress")
+    an.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (the plain versions)")
+    an.set_defaults(func=cmd_analyze)
+
+    sub.add_parser("query", help="not ported yet").set_defaults(
+        func=lambda a: _not_ported("command 'query'"))
     return p
 
 

@@ -31,28 +31,39 @@ KERNEL = Kernel(
     replaces="vuke_tpu/cores/pallas_kernels.py:46 _mt_kernel")
 
 
-def milksad_key_words_plain(seeds: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-    """(N,) uint32 seeds -> (8, N) uint32 BE key words, in int64 torch ops;
-    with ``normalize``, reduced into [1, n-1] (``normalize_words_plain``)."""
-    s = i64(seeds)
+MAX_OUTPUTS = 227        # output 226 twists state word 623, the last of the init block
+
+
+def mt19937_outputs_plain(s: torch.Tensor, n_out: int = 8) -> list:
+    """int64-held u32 seeds -> the first ``n_out`` tempered outputs (int64),
+    ``n_out`` at most ``MAX_OUTPUTS``.  Output k twists state words k, k + 1
+    and k + 397, so the recurrence runs to n_out + 396 and keeps those taps."""
+    if not 1 <= n_out <= MAX_OUTPUTS:
+        raise ValueError(f"mt19937: {n_out} outputs; at most {MAX_OUTPUTS} are kept")
     taps = {0: s}
     prev = s
-    for i in range(1, 405):
+    for i in range(1, n_out + 397):
         # _F32 < 2^31 and prev < 2^32: the product fits int64
         cur = (_F32 * (prev ^ (prev >> 30)) + i) & MASK32
-        if i <= 8 or i >= 397:
+        if i <= n_out or i >= 397:
             taps[i] = cur
         prev = cur
     out = []
-    for i in range(8):
+    for i in range(n_out):
         y = (taps[i] & _UPPER) | (taps[i + 1] & _LOWER)
         x = taps[i + 397] ^ (y >> 1) ^ ((y & 1) * _MATRIX_A)
         x = x ^ (x >> 11)
         x = x ^ ((x << 7) & _TEMPER_B)
         x = x ^ ((x << 15) & _TEMPER_C)
         x = x ^ (x >> 18)
-        out.append(byteswap32(x))
-    words = u32(torch.stack(out, dim=0))
+        out.append(x)
+    return out
+
+
+def milksad_key_words_plain(seeds: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """(N,) uint32 seeds -> (8, N) uint32 BE key words, in int64 torch ops;
+    with ``normalize``, reduced into [1, n-1] (``normalize_words_plain``)."""
+    words = u32(torch.stack([byteswap32(x) for x in mt19937_outputs_plain(i64(seeds), 8)], dim=0))
     return normalize_words_plain(words) if normalize else words
 
 
@@ -85,24 +96,33 @@ _UPPER64 = 0xFFFFFFFF80000000
 _LOWER64 = 0x7FFFFFFF
 
 
-def mt64_key_words_plain(hi: torch.Tensor, lo: torch.Tensor):
-    """int64-held u32 (hi, lo) seeds -> the 8 BE key words of MT19937-64
-    seeded with the u64 seed: its first 4 outputs serialized little-endian
-    (``vuke_tpu/cores/mt19937.py::mt64_key_words``).  The outputs read state
-    words 0..4 and 156..159 (``vuke_tpu/cores/mt19937.py:116-135``); only
-    those of the init recurrence are kept."""
+MAX_OUTPUTS_64 = 156     # output 155 twists state word 311, the last of the init block
+
+
+def mt64_key_words_plain(hi: torch.Tensor, lo: torch.Tensor, n_keys: int = 1):
+    """int64-held u32 (hi, lo) seeds -> the 8 BE key words of each of
+    ``n_keys`` keys of MT19937-64 seeded with the u64 seed: its outputs
+    serialized little-endian, 4 a key (``vuke_tpu/cores/mt19937.py::
+    mt64_key_words``; more keys continue the stream, as
+    ``vuke_tpu/analyze/analyzers.py::Mt64Analyzer._keystream`` does).
+    Output k twists state words k, k + 1 and k + 156
+    (``vuke_tpu/cores/mt19937.py:116-135``); only those of the init
+    recurrence are kept, so 4 x ``n_keys`` is at most ``MAX_OUTPUTS_64``."""
     from .common import u64_and, u64_const, u64_mul_lo, u64_or, u64_shl, u64_shr, u64_xor
 
+    n_out = 4 * n_keys
+    if not 1 <= n_out <= MAX_OUTPUTS_64:
+        raise ValueError(f"mt64: {n_out} outputs; at most {MAX_OUTPUTS_64} are kept")
     s = (hi, lo)
     taps = {0: s}
-    for k in range(1, 160):
+    for k in range(1, n_out + 156):
         x = u64_mul_lo(u64_xor(s, u64_shr(s, 62)), u64_const(_F64))
         low = x[1] + k
         s = ((x[0] + (low >> 32)) & MASK32, low & MASK32)
-        if k <= 4 or k >= 156:
+        if k <= n_out or k >= 156:
             taps[k] = s
     out = []
-    for j in range(4):
+    for j in range(n_out):
         y = u64_or(u64_and(taps[j], u64_const(_UPPER64)),
                    u64_and(taps[j + 1], u64_const(_LOWER64)))
         odd = y[1] & 1

@@ -4,7 +4,9 @@ Counterpart of ``vuke_tpu/cores/xorshift.py``: xorshift64 (shifts 13, 7,
 17), xorshift128 (32-bit lanes seeded from the seed's halves), and
 xorshift128+ and xoroshiro128** (state from two splitmix64 steps; the
 reference's "xorshift128+" steps a xoroshiro128 state).  A zero seed
-becomes 1; u64 outputs are written high word first.  Plain PyTorch over
+becomes 1; u64 outputs are written high word first.  Each function
+returns the 8 x ``n_keys`` words of the stream's first ``n_keys`` keys
+(``vuke_tpu/cores/xorshift.py``'s ``*_keystream_words``).  Plain PyTorch over
 (hi, lo) pairs of int64-held u32 words (``cores/common.py``); the kernel is
 ``csrc/keygen_prng.cu``.
 """
@@ -31,10 +33,10 @@ def _nonzero(hi, lo):
     return hi, torch.where((hi == 0) & (lo == 0), 1, lo)
 
 
-def xorshift64(hi, lo):
+def xorshift64(hi, lo, n_keys: int = 1):
     s = _nonzero(hi, lo)
     out = []
-    for _ in range(4):
+    for _ in range(4 * n_keys):
         s = u64_xor(s, u64_shl(s, 13))
         s = u64_xor(s, u64_shr(s, 7))
         s = u64_xor(s, u64_shl(s, 17))
@@ -42,11 +44,11 @@ def xorshift64(hi, lo):
     return out
 
 
-def xorshift128(hi, lo):
+def xorshift128(hi, lo, n_keys: int = 1):
     hi, lo = _nonzero(hi, lo)
     x, y, z, w = lo, hi, lo ^ 0x12345678, hi ^ 0x87654321
     out = []
-    for _ in range(8):
+    for _ in range(8 * n_keys):
         t = x ^ ((x << 11) & MASK32)
         x, y, z = y, z, w
         w = (w ^ (w >> 19)) ^ (t ^ (t >> 8))
@@ -54,11 +56,11 @@ def xorshift128(hi, lo):
     return out
 
 
-def _xoroshiro(hi, lo, output):
+def _xoroshiro(hi, lo, output, n_keys: int):
     s0 = splitmix64(_nonzero(hi, lo))
     s1 = splitmix64(s0)
     out = []
-    for _ in range(4):
+    for _ in range(4 * n_keys):
         out += list(output(s0, s1))
         s1 = u64_xor(s1, s0)
         s0 = u64_xor(u64_xor(u64_rotl(s0, 24), s1), u64_shl(s1, 16))
@@ -66,13 +68,13 @@ def _xoroshiro(hi, lo, output):
     return out
 
 
-def xorshift128plus(hi, lo):
-    return _xoroshiro(hi, lo, u64_add)
+def xorshift128plus(hi, lo, n_keys: int = 1):
+    return _xoroshiro(hi, lo, u64_add, n_keys)
 
 
-def xoroshiro128starstar(hi, lo):
+def xoroshiro128starstar(hi, lo, n_keys: int = 1):
     return _xoroshiro(hi, lo, lambda s0, s1: u64_mul_lo(
-        u64_rotl(u64_mul_lo(s0, (0, 5)), 7), (0, 9)))
+        u64_rotl(u64_mul_lo(s0, (0, 5)), 7), (0, 9)), n_keys)
 
 
 KEY_FNS = dict(zip(VARIANT_NAMES, (xorshift64, xorshift128, xorshift128plus,

@@ -8,7 +8,8 @@
 // reduces the key into [1, n-1] before the store (scalar.cuh, the derive's
 // normalize step, vuke_tpu/ecc/tiled.py::_normalize_words_t), so the derive
 // needs no pass over the key words between K1 and K3; unset, the kernel
-// computes exactly what _mt_kernel computes.
+// computes exactly what _mt_kernel computes.  The recurrence itself is
+// prng.cuh::mt19937_key, which the sweep kernel S1 (sweep_prng.cu) shares.
 //
 // Bound: ALU.  The recurrence is ~405 dependent multiply-xor-add steps per
 // seed and reads 4 bytes / writes 32 bytes, so memory is idle.  The TPU
@@ -21,46 +22,19 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "prng.cuh"
 #include "scalar.cuh"
 #include "secp256k1.cuh"
 
 namespace {
-
-constexpr uint32_t kF = 1812433253u;
-constexpr uint32_t kMatrixA = 0x9908B0DFu;
-constexpr uint32_t kUpper = 0x80000000u;
-constexpr uint32_t kLower = 0x7FFFFFFFu;
 
 __global__ void __launch_bounds__(256)
 mt19937_kernel(const uint32_t* __restrict__ seeds, uint32_t* __restrict__ out,
                long long n, int normalize) {
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    uint32_t lo[9], hi[8], key[8];
-    uint32_t s = seeds[i];
-    lo[0] = s;
-#pragma unroll
-    for (uint32_t k = 1; k <= 8; k++) {
-        s = kF * (s ^ (s >> 30)) + k;
-        lo[k] = s;
-    }
-#pragma unroll 4
-    for (uint32_t k = 9; k < 397; k++) s = kF * (s ^ (s >> 30)) + k;
-#pragma unroll
-    for (uint32_t k = 397; k < 405; k++) {
-        s = kF * (s ^ (s >> 30)) + k;
-        hi[k - 397] = s;
-    }
-#pragma unroll
-    for (int k = 0; k < 8; k++) {
-        uint32_t y = (lo[k] & kUpper) | (lo[k + 1] & kLower);
-        uint32_t x = hi[k] ^ (y >> 1) ^ ((y & 1u) ? kMatrixA : 0u);
-        x ^= x >> 11;
-        x ^= (x << 7) & 0x9D2C5680u;
-        x ^= (x << 15) & 0xEFC60000u;
-        x ^= x >> 18;
-        key[k] = __byte_perm(x, 0, 0x0123);            // LE bytes -> BE word
-    }
+    uint32_t key[8];
+    vk::prng::mt19937_key(seeds[i], 0, key);       // prng.cuh: the first key of the stream
     if (normalize) vk::scalar_normalize_be(key);
 #pragma unroll
     for (int k = 0; k < 8; k++) out[k * n + i] = key[k];

@@ -223,6 +223,18 @@ def wif(key: bytes, compressed: bool, network: Network = BITCOIN) -> str:
     return base58check_encode(payload)
 
 
+def wif_decode(s: str):
+    """(key bytes, compressed flag, version byte) of a WIF string."""
+    payload = base58check_decode(s)
+    version = payload[0]
+    body = payload[1:]
+    if len(body) == 33 and body[-1] == 0x01:
+        return body[:32], True, version
+    if len(body) == 32:
+        return body, False, version
+    raise ValueError("invalid WIF payload length")
+
+
 def decode_address_h160(addr: str):
     """A target address -> (h160 bytes, "p2pkh" | "p2wpkh"), or None when
     the string is not a recognizable address."""

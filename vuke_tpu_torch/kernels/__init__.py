@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 PTR = ctypes.c_void_p
 SIZE = ctypes.c_longlong
 INT = ctypes.c_int
+U32 = ctypes.c_uint32
 
 
 def find_nvcc() -> str:

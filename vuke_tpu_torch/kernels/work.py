@@ -48,6 +48,9 @@ class Ops:
     def __add__(self, other: "Ops") -> "Ops":
         return Ops(self.mul + other.mul, self.alu + other.alu, self.add + other.add)
 
+    def __sub__(self, other: "Ops") -> "Ops":
+        return Ops(self.mul - other.mul, self.alu - other.alu, self.add - other.add)
+
     def __rmul__(self, k: float) -> "Ops":
         return Ops(k * self.mul, k * self.alu, k * self.add)
 
@@ -249,16 +252,18 @@ def hash160_lane(t: Trace, x, y):
     return hc, hu, frags
 
 
-def mt19937_lane(t: Trace, seed):
+def mt19937_lane(t: Trace, seed, n_keys: int = 1):
     """K1 on one seed (without the normalize epilogue): init_genrand to
-    state index 404, then the first 8 outputs twisted, tempered and
-    byteswapped into BE key words (csrc/mt19937.cu)."""
+    state index 8 n_keys + 396, then the first 8 n_keys outputs twisted,
+    tempered and byteswapped into BE key words (csrc/mt19937.cu; S1 streams
+    further keys)."""
+    n_out = 8 * n_keys
     state = [seed]
-    for k in range(1, 405):
+    for k in range(1, n_out + 397):
         s = state[-1]
         state.append(t.mad(1812433253, t.lop(lambda v, u: v ^ u, s, t.shr(s, 30)), k))
     key = []
-    for k in range(8):
+    for k in range(n_out):
         y = t.lop(lambda u, v: (u & 0x80000000) | (v & 0x7FFFFFFF), state[k], state[k + 1])
         odd = t.mad(t.lop(lambda v: v & 1, y), 0x9908B0DF, 0)
         x = t.lop(_xor3, state[397 + k], t.shr(y, 1), odd)
@@ -429,13 +434,14 @@ def splitmix64_lane(t: Trace, x):
     return xor64(t, x, shr64(t, x, 31))
 
 
-def xorshift_lane(t: Trace, name: str, hi, lo):
-    """The 8 BE key words of xorshift variant ``name`` (cores/xorshift.py)."""
+def xorshift_lane(t: Trace, name: str, hi, lo, n_keys: int = 1):
+    """The 8 BE words of each of the first ``n_keys`` keys of xorshift
+    variant ``name`` (cores/xorshift.py)."""
     hi, lo = _nonzero(t, hi, lo)
     out = []
     if name == "xorshift64":
         s = (hi, lo)
-        for _ in range(4):
+        for _ in range(4 * n_keys):
             s = xor64(t, s, shl64(t, s, 13))
             s = xor64(t, s, shr64(t, s, 7))
             s = xor64(t, s, shl64(t, s, 17))
@@ -444,7 +450,7 @@ def xorshift_lane(t: Trace, name: str, hi, lo):
         x, y = lo, hi
         z = t.lop(lambda v: v ^ 0x12345678, lo)
         w = t.lop(lambda v: v ^ 0x87654321, hi)
-        for _ in range(8):
+        for _ in range(8 * n_keys):
             tt = t.lop(lambda a, b: a ^ b, x, t.shl(x, 11))
             x, y, z = y, z, w
             w = t.lop(_xor3, w, t.shr(w, 19), t.lop(lambda a, b: a ^ b, tt, t.shr(tt, 8)))
@@ -452,7 +458,7 @@ def xorshift_lane(t: Trace, name: str, hi, lo):
     else:
         s0 = splitmix64_lane(t, (hi, lo))
         s1 = splitmix64_lane(t, s0)
-        for _ in range(4):
+        for _ in range(4 * n_keys):
             if name == "xorshift128+":
                 out += list(add64(t, s0, s1))
             else:
@@ -463,18 +469,20 @@ def xorshift_lane(t: Trace, name: str, hi, lo):
     return out
 
 
-def mt64_lane(t: Trace, hi, lo):
-    """The 8 BE key words of MT19937-64 (cores/mt19937.py): 159 init steps,
-    each a 64-bit multiply-add, and 4 outputs twisted and tempered."""
+def mt64_lane(t: Trace, hi, lo, n_keys: int = 1):
+    """The 8 BE words of each of the first ``n_keys`` keys of MT19937-64
+    (cores/mt19937.py): 4 n_keys + 155 init steps, each a 64-bit
+    multiply-add, and 4 n_keys outputs twisted and tempered."""
+    n_out = 4 * n_keys
     s = (hi, lo)
     taps = {0: s}
-    for k in range(1, 160):
+    for k in range(1, n_out + 156):
         s = add64(t, mul64(t, xor64(t, s, shr64(t, s, 62)), _c64(6364136223846793005)),
                   (0, k))
-        if k <= 4 or k >= 156:
+        if k <= n_out or k >= 156:
             taps[k] = s
     out = []
-    for j in range(4):
+    for j in range(n_out):
         # the upper mask keeps all of the high word
         y = (taps[j][0],
              t.lop(lambda a, b: (a & 0x80000000) | (b & 0x7FFFFFFF), taps[j][1], taps[j + 1][1]))
@@ -511,7 +519,7 @@ def keygen_prng(family: str, variant: int = -1, big_endian: bool = True) -> Ops:
 def keygen_chain(digits: float, variant: int = -1, depth: int = 10) -> Ops:
     """keygen_chain per lane: one SHA-256 compression a slot over the
     seed's string, then over its 4 bytes (csrc/keygen_chain.cu)."""
-    from ..cores.sha256_chain import VARIANTS, suffix
+    from ..cores.sha256_chain import VARIANTS
     t = Trace()
     for v in (VARIANTS if variant < 0 else [VARIANTS[variant]]):
         for d in range(depth):
@@ -519,17 +527,21 @@ def keygen_chain(digits: float, variant: int = -1, depth: int = 10) -> Ops:
             sha256_block(t, SHA_IV, _str_block() if v == "iterated" and d == 0 else
                          [None] * 8 + [0x80000000] + [0] * 6 + [256] if v == "iterated"
                          else [None] * 7 + [0] * 7 + [0, None])
-            # the 4-byte seed: one lane word, the appended bytes known
-            if v == "iterated":
-                block = ([None, 0x80000000] + [0] * 13 + [32] if d == 0 else
-                         [None] * 8 + [0x80000000] + [0] * 6 + [256])
-            else:
-                tail = suffix(v, d)
-                pad = (tail + b"\x80").ljust(-(-(len(tail) + 1) // 4) * 4, b"\x00")
-                words = [int.from_bytes(pad[i:i + 4], "big") for i in range(0, len(pad), 4)]
-                block = [None] + words + [0] * (14 - len(words)) + [0, (4 + len(tail)) * 8]
-            sha256_block(t, SHA_IV, block)
+            sha256_block(t, SHA_IV, _seed4_block(v, d))
     return t.ops + decimal(digits)
+
+
+def _seed4_block(v: str, d: int) -> list:
+    """The block of chain key ``d`` of variant ``v`` over a 4-byte seed: one
+    lane word, the appended bytes known (iterated: the previous key)."""
+    from ..cores.sha256_chain import suffix
+    if v == "iterated":
+        return ([None, 0x80000000] + [0] * 13 + [32] if d == 0 else
+                [None] * 8 + [0x80000000] + [0] * 6 + [256])
+    tail = suffix(v, d)
+    pad = (tail + b"\x80").ljust(-(-(len(tail) + 1) // 4) * 4, b"\x00")
+    words = [int.from_bytes(pad[i:i + 4], "big") for i in range(0, len(pad), 4)]
+    return [None] + words + [0] * (14 - len(words)) + [0, (4 + len(tail)) * 8]
 
 
 def digest(mode: str, blocks: float) -> Ops:
@@ -574,3 +586,55 @@ def p2pkh() -> Ops:
     sha256_block(t, SHA_IV, state + [0x80000000] + [0] * 6 + [256])
     return (t.ops + 28 * Ops(mul=2 * 4 + 2, alu=1, add=6) + 28 * Ops(mul=3, alu=1)
             + 34 * Ops(alu=5))
+
+
+# --- the reverse sweeps (cores/sweep.py): a lane's keystream and compare;
+# a cascade's further keys only for the share of lanes that reach them,
+# counted from the run's data ---
+
+def _compare_ops(mode: str) -> Ops:
+    """exact: 8 word compares; mask: key words 6 and 7 masked and or-ed (2
+    LOP3) and compared (2)."""
+    return Ops(alu=8 if mode == "exact" else 4)
+
+
+def sweep_prng(family: str, mode: str, variant: int = 0, big_endian: bool = True,
+               reach=(1.0,)) -> Ops:
+    """S1 per lane (csrc/sweep_prng.cu): the seed's lattice (an add; the
+    64-bit families also the carry's compare and add), key 0 of the stream
+    and its compare, then for each further key j of a cascade the share
+    ``reach[j]`` of lanes that passed targets 0..j-1: the stream's next key
+    (what the stream of j + 1 keys needs beyond that of j) and its compare."""
+    from ..cores import lcg, xorshift
+
+    def stream(n: int) -> Ops:
+        t = Trace()
+        if family == "milksad":
+            mt19937_lane(t, None, n)
+        elif family == "mt64":
+            mt64_lane(t, None, None, n)
+        elif family == "lcg":
+            lcg_lane(t, None, lcg.ALL_VARIANTS[variant], big_endian)
+        else:
+            xorshift_lane(t, xorshift.VARIANT_NAMES[variant], None, None, n)
+        return t.ops
+
+    lattice = Ops(add=1) if family in ("milksad", "lcg") else Ops(alu=1, add=2)
+    ops = lattice + stream(1) + _compare_ops(mode)
+    for j in range(1, len(reach)):
+        ops = ops + reach[j] * (stream(j + 1) - stream(j) + _compare_ops(mode))
+    return ops
+
+
+def sweep_chain(variant: str, mode: str, reach) -> Ops:
+    """S2 per lane (csrc/sweep_chain.cu): the seed's add, then for each
+    chain position d the share ``reach[d]`` of lanes that compute it (exact
+    and mask: every lane not yet hit; cascade: those that passed targets
+    0..d-1): one SHA-256 compression of its block and its compare."""
+    t = Trace()
+    ops = Ops(add=1)
+    for d, share in enumerate(reach):
+        t = Trace()
+        sha256_block(t, SHA_IV, _seed4_block(variant, d))
+        ops = ops + share * (t.ops + _compare_ops(mode))
+    return ops

@@ -3,7 +3,9 @@
 The port's copy of ``vuke_tpu/parallel/checkpoint.py::SweepCheckpoint``:
 the same JSON (``job_id``, ``completed`` as inclusive ``[start, end]``
 pairs, ``found_seed``), written atomically (a temporary file, then a
-rename), adjacent ranges merged; a manifest of another job is ignored.
+rename), adjacent ranges merged; a manifest of another job is ignored;
+and ``checkpointed_sweep``, which runs an ``analyze`` sweep chunk by chunk
+against such a manifest.
 """
 
 from __future__ import annotations
@@ -76,3 +78,42 @@ class SweepCheckpoint:
         if pos <= end:
             out.append((pos, end))
         return out
+
+
+def checkpointed_sweep(program, start: int, end: int, ckpt: SweepCheckpoint,
+                       target_words=None, progress=None,
+                       checkpoint_every_batches: int = 16, decode=None):
+    """Sweep [start, end] with periodic durable progress (the port of
+    ``vuke_tpu/parallel/checkpoint.py::checkpointed_sweep``).
+
+    Resumes from the manifest's pending ranges; marks each chunk of
+    ``checkpoint_every_batches`` batches completed once it is swept, and
+    records a found seed (a sha256_chain hit's ``(seed, index)`` comes
+    back from JSON as a list and is returned as a tuple).
+    """
+    from ..analyze import sweeps
+    if ckpt.found_seed is not None:
+        seed = ckpt.found_seed
+        if isinstance(seed, list):   # JSON round-trip of a (seed, index) pair
+            seed = tuple(seed)
+        return sweeps.SweepResult(True, seed, 0, 0.0)
+    searched = 0
+    cascade_hits = 0
+    chunk = program.batch * checkpoint_every_batches
+    for s, e in ckpt.pending_ranges(start, end):
+        pos = s
+        while pos <= e:
+            ce = min(e, pos + chunk - 1)
+            r = sweeps.sweep(program, pos, ce, target_words=target_words,
+                             progress=progress, decode=decode)
+            searched += r.searched
+            cascade_hits += r.cascade_hits
+            if r.found:
+                ckpt.found_seed = r.seed
+                ckpt.save()
+                return sweeps.SweepResult(True, r.seed, searched, r.elapsed,
+                                          cascade_hits)
+            ckpt.mark_completed(pos, ce)
+            ckpt.save()
+            pos = ce + 1
+    return sweeps.SweepResult(False, None, searched, 0.0, cascade_hits)

@@ -108,27 +108,27 @@ def seed_lattice(start: int, offsets: torch.Tensor):
 
 
 class StatsRing:
-    """The per-slot ``[n_valid, count]`` of a superbatch, on their way to the
-    host without blocking.  On the card each superbatch's (S, 2) tensor goes
-    into the next of two pinned rows, with an event behind the copy, and
-    ``_Pending.tolist`` waits for that event alone: work enqueued after the
-    copy (the next superbatch) keeps the device busy meanwhile.  Rows and
-    events are reused, so a superbatch allocates nothing on the host; the
-    driver reads a row before it sends the one after next.  On the CPU a
-    copy of the tensor is kept."""
+    """The per-slot ``[n_valid, count]`` of a superbatch (or a sweep
+    batch's record), on their way to the host without blocking.  On the
+    card each (S, 2) tensor goes into the next of ``depth`` pinned rows,
+    with an event behind the copy, and ``_Pending.tolist`` waits for that
+    event alone: work enqueued after the copy (the next superbatch) keeps
+    the device busy meanwhile.  Rows and events are reused, so a send
+    allocates nothing on the host; the caller reads a row before it sends
+    ``depth`` more.  On the CPU a copy of the tensor is kept."""
 
-    def __init__(self, device: torch.device, slots: int):
+    def __init__(self, device: torch.device, slots: int, depth: int = 2):
         self.cuda = device.type == "cuda"
         if self.cuda:
             self.rows = [torch.empty((slots, 2), dtype=torch.int64, pin_memory=True)
-                         for _ in range(2)]
-            self.events = [torch.cuda.Event() for _ in range(2)]
+                         for _ in range(depth)]
+            self.events = [torch.cuda.Event() for _ in range(depth)]
         self.turn = 0
 
     def send(self, stats: torch.Tensor):
         if not self.cuda:
             return stats.clone()
-        i = self.turn % 2
+        i = self.turn % len(self.rows)
         self.turn += 1
         self.rows[i].copy_(stats, non_blocking=True)
         self.events[i].record()
