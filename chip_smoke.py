@@ -102,8 +102,9 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    families' keystream and compare fused) and S2 (``csrc/sweep_chain.cu``,
    the sha256 chains'):
    8a. S1 in every family, variant and mode (exact, mask of 64 and 12 bits,
-   cascades of 5 and 2 targets with the first-filter count) and S2 in every
-   variant and mode at depth 10, against their plain versions on 2^20 lanes
+   cascades of 5 and 2 targets with the first-filter count, and of 40, past
+   MT19937's init block) and S2 in every variant and mode at depth 10 (and a
+   cascade of 40), against their plain versions on 2^24 and 2^22 lanes
    with hits planted in the middle lane and the last, across the carry into
    the high word (mt64, xorshift) and the u32 wrap (chains): the records
    must be equal; then each kernel's time at the sweeps' batches (S1 2^24,
@@ -116,9 +117,28 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    seed's keys and ``--max-seeds 2^32``, the default ``analyze KEY`` (every
    analyzer), ``--puzzle boha:b1000:40:3``, ``--cascade boha:b1000:67``,
    ``--verify boha:b1000``, and ``--checkpoint`` over the first half, then
-   resumed to the planted seed; each with its seeds/s and launches;
+   resumed to the planted seed; each with its seeds/s and launches; then a
+   milksad ``--cascade`` of 40 targets from a planted seed's keys;
    8c. ``scan --transform direct:be --targets boha:b1000:solved`` over
-   [2^20, 2^32 - 1]: exactly puzzles 21..32, and the provider's stderr.
+   [2^20, 2^32 - 1]: exactly puzzles 21..32, and the provider's stderr;
+9. the wallet paths, with W1 (``csrc/pbkdf2_sha512.cu``, PBKDF2-HMAC-SHA512)
+   and W2 (``csrc/electrum_stretch.cu``, Electrum's key stretch):
+   9a. W1 against its plain version at 2 and 7 iterations on 4096
+   candidates (keys of 0 to 330 bytes, salts to 107 bytes), at 2048 on 2^16
+   against hashlib on 263 lanes and the BIP39 Trezor vector; its time,
+   bound and share;
+   9b. W2 against its plain version at 1, 2 and 17 rounds at every seed
+   length edge, at 99,999 rounds on 64 seeds against hashlib and the
+   official Electrum seed's master public key (K3 -> K4); its time on 2^16
+   10-byte and 2^14 32-byte seeds;
+   9c. ``scan --transform electrum`` over 2^16 timestamps with a key planted
+   at derivation index 7: W2 once a 1000-seed batch, the seeds/s;
+   9d. ``analyze --analyzer multibit-hd --mnemonic-file`` over 4096
+   mnemonics, the MultiBit bug vector planted: CONFIRMED, W1 twice; then
+   ``bench_wallet("multibit")`` on 1024 beside the hashlib host path;
+   9e. planted armory (range), multibit (wordlist) and bitimage (files)
+   scans, and ``generate --transform electrum`` against the host
+   ``KeyDeriver``.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
@@ -155,6 +175,7 @@ from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
 from vuke_tpu_torch.ecc import inv, pubkey, ref, scalar, smul, smul_w8, tiled
 from vuke_tpu_torch.kernels import sass, work
+from vuke_tpu_torch.wallets import electrum, multibit, pbkdf2_device
 
 N_KERNEL = 16384
 BATCH = 1 << 19
@@ -167,13 +188,32 @@ KEYGEN = {"keygen_hash": keygen.HASH_KERNEL, "keygen_prng": keygen.PRNG_KERNEL,
           "keygen_chain": keygen.CHAIN_KERNEL}
 STRING_KERNELS = {"digest": digest.KERNEL, "p2pkh": p2pkh.KERNEL}
 SWEEP_KERNELS = {"sweep_prng": sweep.PRNG_KERNEL, "sweep_chain": sweep.CHAIN_KERNEL}
-ALL_KERNELS = KERNELS | KEYGEN | STRING_KERNELS | SWEEP_KERNELS
+WALLET_KERNELS = {"pbkdf2_sha512": pbkdf2_device.KERNEL, "electrum_stretch": electrum.KERNEL}
+ALL_KERNELS = KERNELS | KEYGEN | STRING_KERNELS | SWEEP_KERNELS | WALLET_KERNELS
 N_STRINGS = 1 << 16
 GEN_SEEDS = 70_000
 WORDS = 1 << 20
 CHAIN_WORDS = 1 << 14
 DAY = "2015-06-01"
 SPACE = 1 << 32
+# phase 9: W1 against its plain version on W1_LANES candidates, at 2048
+# iterations on W1_FULL; W2 at every length edge on W2_LANES; the electrum
+# scan's timestamps; the multibit dictionary (the BIP32 tail is Python EC)
+W1_LANES = 4096
+W1_FULL = 1 << 16
+W2_LANES = 4096
+W2_LENGTHS = (1, 10, 23, 24, 32, 87, 88, 150)
+ELECTRUM_SEEDS = 1 << 16
+MNEMONICS = 4096
+CASCADE = 40
+ELECTRUM_SEED = "acb740e454c3134901d7c8f16497cc1c"
+ELECTRUM_MPK = ("e9d4b7866dd1e91c862aebf62a49548c7dbf7bcc6e4b7b8c9da820c7737968df"
+                "9c09d5a3e271dc814a29981f81b3faaf2737b551ef5dcc6189cf0f8252c442b3")
+MNEMONIC_445 = ("skin join dog sponsor camera puppy ritual diagram arrow poverty boy "
+                "elbow")
+TREZOR = ("legal winner thank year wave sausage worth useful legal winner thank yellow",
+          "2e8905819b8723fe2c1d161860e5ee1830318dbf49a83bd451cfb8440c28bd6f"
+          "a457fe1296106559a3c80937a1c1069be3a3a5bd381ee6260e8d9739fce1f607")
 # the lanes of a sweep batch on the main path (analyze/analyzers.py): S1 takes the
 # card's batch, S2 a quarter of it
 S1_LANES = CARD_SWEEP_BATCH
@@ -297,17 +337,21 @@ def host_lcg_key(seed: int, v, big_endian: bool = True) -> bytes:
 
 
 def host_mt64_key(seed: int, n_keys: int = 1) -> bytes:
-    """MT19937-64 (init_genrand64, then the twist of the first state
-    words): its first 4 x ``n_keys`` tempered outputs, serialized
-    little-endian (``n_keys`` keys of 32 bytes)."""
+    """MT19937-64 (init_genrand64, then the generator's in-place twist of
+    its 312 words, again every 312 outputs): its first 4 x ``n_keys``
+    tempered outputs, serialized little-endian (``n_keys`` keys of 32
+    bytes)."""
     m64 = (1 << 64) - 1
     mt = [seed & m64]
     for i in range(1, 312):
         mt.append((6364136223846793005 * (mt[-1] ^ (mt[-1] >> 62)) + i) & m64)
     out = b""
     for i in range(4 * n_keys):
-        y = (mt[i] & 0xFFFFFFFF80000000) | (mt[i + 1] & 0x7FFFFFFF)
-        x = mt[i + 156] ^ (y >> 1) ^ (0xB5026F5AA96619E9 if y & 1 else 0)
+        if i % 312 == 0:
+            for k in range(312):
+                y = (mt[k] & 0xFFFFFFFF80000000) | (mt[(k + 1) % 312] & 0x7FFFFFFF)
+                mt[k] = mt[(k + 156) % 312] ^ (y >> 1) ^ (0xB5026F5AA96619E9 if y & 1 else 0)
+        x = mt[i % 312]
         x ^= (x >> 29) & 0x5555555555555555
         x ^= (x << 17) & 0x71D67FFFEDA60000
         x ^= (x << 37) & 0xFFF7EEE000000000
@@ -1752,6 +1796,15 @@ def sweep_compares(keys_mid: list, keys_last: list, cascade: bool, track: bool =
     return cmp
 
 
+def long_cascade(keys: list, track: bool) -> sweep.Compare:
+    """A cascade of ``CASCADE`` targets from one seed's keys (past the
+    MT19937 init block's 28 keys): 4 bits on key 0, so that an eighth of
+    the lanes pass the first filter, then 8 to 24 bits."""
+    bits = [4] + [8 + j % 17 for j in range(1, len(keys))]
+    return sweep.Compare("cascade", track=track,
+                         targets=tuple((b, apply_mask(k, b)) for b, k in zip(bits, keys)))
+
+
 def sweep_against_plain(dev, rng, n_prng: int = S1_LANES, n_chain: int = S2_LANES) -> dict:
     """S1 in every family, variant and mode on ``n_prng`` lanes and S2 in
     every variant and mode at depth 10 on ``n_chain`` (by default the
@@ -1759,8 +1812,10 @@ def sweep_against_plain(dev, rng, n_prng: int = S1_LANES, n_chain: int = S2_LANE
     version on the card on the same lanes: the 64-bit families from (5 << 32) + 2^32 - n/2 (the carry
     mid-batch), milksad and the LCGs the top n seeds of the u32 space, the
     chains from 2^32 - n/2 (the u32 wrap); hits planted in the middle lane
-    and the last.  Records (first hit, first-filter count) must be equal;
-    returns {kernel: (cases, max abs err)}."""
+    and the last; a cascade of ``CASCADE`` targets from the middle lane's
+    keys in every family but the LCGs' and every chain variant.  Records
+    (first hit, first-filter count) must be equal; returns {kernel: (cases,
+    max abs err)}."""
     got = torch.empty(2, dtype=torch.int64, device=dev)
     want = torch.empty(2, dtype=torch.int64, device=dev)
     out = {}
@@ -1788,10 +1843,12 @@ def sweep_against_plain(dev, rng, n_prng: int = S1_LANES, n_chain: int = S2_LANE
         streams = ([(v, be) for v in range(4) for be in (True, False)] if family == "lcg"
                    else [(v, True) for v in range(4 if family == "xorshift" else 1)])
         for v, be in streams:
-            nk = 1 if family == "lcg" else 5
-            cmps = sweep_compares(plain_keys(family, v, be, start + mid, nk),
-                                  plain_keys(family, v, be, start + n - 1, nk),
+            nk = 1 if family == "lcg" else CASCADE
+            keys_mid = plain_keys(family, v, be, start + mid, nk)
+            cmps = sweep_compares(keys_mid[:5], plain_keys(family, v, be, start + n - 1, 5)[:nk],
                                   family != "lcg")
+            if family != "lcg":
+                cmps.append(long_cascade(keys_mid, True))
             for j, cmp in enumerate(cmps):
                 hold(f"S1 {family}:{v}:{'be' if be else 'le'}", sweep.PRNG_KERNEL,
                      lambda r, c: sweep.sweep_prng(r, start, n, family, v, be, c),
@@ -1801,9 +1858,10 @@ def sweep_against_plain(dev, rng, n_prng: int = S1_LANES, n_chain: int = S2_LANE
     mid = n // 2 + off
     start = SPACE - n // 2
     for v in sweep.CHAIN_VARIANTS:
-        km, kl = plain_chain(v, start + mid, 10), plain_chain(v, start + n - 1, 10)
+        km, kl = plain_chain(v, start + mid, CASCADE), plain_chain(v, start + n - 1, 10)
         cmps = sweep_compares([km[7]], [kl[9]], False)
         cmps += sweep_compares(km[:5], kl[:2], True, track=False)[4:]
+        cmps.append(long_cascade(km, False))
         for j, cmp in enumerate(cmps):
             depth = cmp.n_targets if cmp.mode == "cascade" else 10
             last = (n - 1) * (1 if cmp.mode == "cascade" else 10) + (9 if j in (1, 3) else 0)
@@ -1891,10 +1949,10 @@ def phase_sweep_kernels(dev, rng, card: str, int_ops_per_s: float):
     say(f"[8a S1, S2] the main path's batches, hits planted in the middle lane and the last: "
         f"S1 {held['sweep_prng'][0]} cases on {S1_LANES} lanes (milksad, mt64, lcg x4 x BE/LE, "
         f"xorshift x4; exact, mask 64 and 12 bits, cascades of 5 and 2 targets with the first "
-        f"filter; mt64 and xorshift across the carry into the high word), S2 "
-        f"{held['sweep_chain'][0]} cases on {S2_LANES} lanes (4 variants at depth 10 across "
-        f"the u32 wrap): first hit and first-filter count == plain on every case (max abs "
-        f"err 0); {time.perf_counter() - t0:.1f} s")
+        f"filter and of {CASCADE}; mt64 and xorshift across the carry into the high word), S2 "
+        f"{held['sweep_chain'][0]} cases on {S2_LANES} lanes (4 variants at depth 10 and a "
+        f"cascade of {CASCADE}, across the u32 wrap): first hit and first-filter count == "
+        f"plain on every case (max abs err 0); {time.perf_counter() - t0:.1f} s")
     times = sweep_timing(dev, card, int_ops_per_s)
     return {k: err for k, (_, err) in held.items()}, times
 
@@ -2091,6 +2149,321 @@ def phase_provider_scan(card: str) -> dict:
         f"wall clock); launches {launches} [{card}]")
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 9: the wallet kernels W1 (csrc/pbkdf2_sha512.cu) and W2
+# (csrc/electrum_stretch.cu) and the wallet paths
+# ---------------------------------------------------------------------------
+
+W1_KEYS = (0, 1, 127, 128, 129, 330)      # key lengths across the block edge
+W1_SALTS = (b"mnemonic", b"mnemonicTREZOR", b"s" * 107)
+
+
+def w1_passwords(rng, n: int) -> list:
+    """The edge key lengths, then random keys of 0 to 200 bytes."""
+    return ([bytes(rng.bytes(k)) for k in W1_KEYS]
+            + [bytes(rng.bytes(int(rng.integers(0, 201)))) for _ in range(n - len(W1_KEYS))])
+
+
+def w1_against_plain(dev, rng, n: int = W1_LANES) -> dict:
+    """W1 against its plain version on the card at 2 and 7 iterations, on
+    ``n`` candidates and every salt of ``W1_SALTS``: {iterations: max abs
+    err}."""
+    keys = pbkdf2_device.key_blocks(w1_passwords(rng, n)).to(dev)
+    errs = {}
+    for it in (2, 7):
+        for salt in W1_SALTS:
+            sb = pbkdf2_device._salt_block_words(salt)
+            got = launched_once(pbkdf2_device.KERNEL,
+                                lambda: pbkdf2_device.pbkdf2_sha512(keys, sb, it))
+            want = pbkdf2_device.pbkdf2_sha512_plain(keys, sb, it)
+            errs[it] = max(errs.get(it, 0), exact_err(f"W1 {it} iterations, salt {len(salt)} B",
+                                                      [got], [want]))
+    return errs
+
+
+def w1_full(dev, rng, n: int = W1_FULL, sample: int = 256):
+    """W1 at 2048 iterations on ``n`` candidates (one launch), ``sample``
+    lanes against hashlib, and the BIP39 Trezor vector; returns the key
+    blocks and the salt block (the timing's inputs)."""
+    pws = w1_passwords(rng, n - 1) + [TREZOR[0].encode()]
+    salt = b"mnemonicTREZOR"
+    keys = pbkdf2_device.key_blocks(pws).to(dev)
+    sb = pbkdf2_device._salt_block_words(salt)
+    out = launched_once(pbkdf2_device.KERNEL, lambda: pbkdf2_device.pbkdf2_sha512(keys, sb))
+    raw = np.ascontiguousarray(out.view(torch.int32).cpu().numpy().view(np.uint32).T)
+    lanes = list(range(len(W1_KEYS))) + rng.choice(n - 1, sample, replace=False).tolist()
+    for j in lanes + [n - 1]:
+        if raw[j].astype(">u4").tobytes() != hashlib.pbkdf2_hmac("sha512", pws[j], salt, 2048):
+            raise AssertionError(f"W1 at 2048 iterations: lane {j} differs from hashlib")
+    if raw[n - 1].astype(">u4").tobytes().hex() != TREZOR[1]:
+        raise AssertionError("W1: the BIP39 Trezor vector differs")
+    return keys, sb, len(lanes) + 1
+
+
+def phase_w1(dev, rng, card: str, int_ops_per_s: float):
+    """9a: W1 against its plain version and hashlib; its time, bound and
+    share at 2048 iterations, and, for the kernels line, at 7 iterations
+    beside its plain version (which cannot run 2048 in the time limit)."""
+    t0 = time.perf_counter()
+    errs = w1_against_plain(dev, rng)
+    keys, sb, checked = w1_full(dev, rng)
+    n = W1_FULL
+    ms = time_cuda(lambda: pbkdf2_device.pbkdf2_sha512(keys, sb), iters=3, warmup=1)
+    dev_ms = launch_device_ms(lambda: pbkdf2_device.pbkdf2_sha512(keys, sb),
+                              pbkdf2_device.KERNEL, iters=3)
+    ops = work.pbkdf2_sha512(2048)
+    bound_ms, _, limit = bound_of(192 * n, ops, n, int_ops_per_s)
+    k7 = keys[:, :W1_LANES].contiguous()
+    ms7 = time_cuda(lambda: pbkdf2_device.pbkdf2_sha512(k7, sb, 7), iters=10, warmup=2)
+    t1 = time.perf_counter()
+    pbkdf2_device.pbkdf2_sha512_plain(k7, sb, 7)
+    torch.cuda.synchronize()
+    plain7 = (time.perf_counter() - t1) * 1e3
+    bound7, by7, _ = bound_of(192 * W1_LANES, work.pbkdf2_sha512(7), W1_LANES, int_ops_per_s)
+    say(f"[9a W1 pbkdf2_sha512] {W1_LANES} candidates (keys of {list(W1_KEYS)} bytes and "
+        f"random ones, salts of 8, 14 and 107 bytes): kernel == plain at 2 and 7 iterations "
+        f"(max abs err 0); {n} candidates at 2048 iterations, {checked} lanes == "
+        f"hashlib.pbkdf2_hmac and the BIP39 Trezor vector; {time.perf_counter() - t0:.1f} s")
+    say(f"[9a W1 time] {n} candidates x 2048 iterations: kernel {ms:.3f} ms (CUDA events), "
+        f"{dev_ms:.3f} ms device (profiler), {n / dev_ms * 1e3:.4g} PBKDF2/s; bound "
+        f"{bound_ms:.3f} ms by {limit} ({100 * bound_ms / dev_ms:.1f}% of the device time; a "
+        f"lane needs {ops.alu:.4g} ALU, {ops.add:.4g} adds); at 7 iterations on {W1_LANES}: "
+        f"kernel {ms7:.4f} ms, plain {plain7:.1f} ms, bound {bound7:.4f} ms [{card}]")
+    return max(errs.values()), (ms7, plain7, bound7, by7)
+
+
+def w2_inputs(rng, length: int, n: int):
+    """``n`` seeds of ``length`` random bytes (the first the ASCII of the
+    official Electrum seed where the length fits): (seeds, x0 (8, n), seed
+    words)."""
+    seeds = [bytes(rng.bytes(length)) for _ in range(n)]
+    if length == 32:
+        seeds[0] = ELECTRUM_SEED.encode()
+    raw = b"".join(hashlib.sha256(sd + sd).digest() for sd in seeds)
+    w = np.frombuffer(raw, dtype=">u4").astype(np.uint32).reshape(n, 8)
+    x0 = torch.from_numpy(np.ascontiguousarray(w.T).view(np.int32)).view(torch.uint32)
+    return seeds, x0, electrum.seed_words(seeds)
+
+
+def w2_against_plain(dev, rng, n: int = W2_LANES) -> int:
+    """W2 against its plain version on the card at 1, 2 and 17 rounds for
+    each length of ``W2_LENGTHS`` (one block to 23 bytes, two to 87, three
+    beyond; 32: the padding block alone): max abs err."""
+    err = 0
+    for length in W2_LENGTHS:
+        _, x0, sw = w2_inputs(rng, length, n)
+        x0, sw = x0.to(dev), sw.to(dev)
+        for rounds in (1, 2, 17):
+            got = launched_once(electrum.KERNEL, lambda: electrum.stretch(x0, sw, length, rounds))
+            err = max(err, exact_err(f"W2 length {length}, {rounds} rounds",
+                                     [got], [electrum.stretch_plain(x0, sw, length, rounds)]))
+    return err
+
+
+def w2_full(dev, rng, n: int = 64):
+    """W2 at 99,999 rounds on ``n`` seeds of 10 and of 32 bytes against
+    ``electrum.stretch_key`` (hashlib), the official Electrum seed among
+    them, and its master public key through ``master_pubkeys_device`` (K3
+    -> K4 on the card)."""
+    for length in (10, 32):
+        seeds = w2_inputs(rng, length, n)[0]
+        got = electrum.stretch_keys_device(seeds, dev)
+        for j, sd in enumerate(seeds):
+            if got[j] != electrum.stretch_key(sd):
+                raise AssertionError(f"W2 at 99,999 rounds: seed {sd!r} differs from hashlib")
+    mpk = electrum.master_pubkeys_device(got[:1], dev)[0]
+    if mpk.hex() != ELECTRUM_MPK:
+        raise AssertionError(f"the Electrum seed's master public key: {mpk.hex()}")
+
+
+def phase_w2(dev, rng, card: str, int_ops_per_s: float):
+    """9b: W2 against its plain version and hashlib; its time on 2^16
+    10-byte seeds and 2^14 32-byte ones with bound and share, and, for the
+    kernels line, at 17 rounds beside its plain version."""
+    t0 = time.perf_counter()
+    err = w2_against_plain(dev, rng)
+    w2_full(dev, rng)
+    say(f"[9b W2 electrum_stretch] {W2_LANES} seeds of each length {list(W2_LENGTHS)}: kernel "
+        f"== plain at 1, 2 and 17 rounds (max abs err 0); 64 seeds of 10 and of 32 bytes at "
+        f"99,999 rounds == electrum.stretch_key (hashlib); the official seed's master public "
+        f"key (master_pubkeys_device: K3 -> K4) == {ELECTRUM_MPK[:16]}...; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for length, n in ((10, 1 << 16), (32, 1 << 14)):
+        _, x0, sw = w2_inputs(rng, length, n)
+        x0, sw = x0.to(dev), sw.to(dev)
+        # CUDA events alone: torch.profiler recorded none of these half-second
+        # launches in a trial run, and the host's share of events around one
+        # is below 0.01%
+        ms = time_cuda(lambda: electrum.stretch(x0, sw, length), iters=2, warmup=1)
+        ops = work.electrum_stretch(length, electrum.ROUNDS)
+        bound_ms, _, limit = bound_of((64 + 4 * sw.shape[0]) * n, ops, n, int_ops_per_s)
+        say(f"[9b W2 time] {n} seeds of {length} bytes x 99,999 rounds: kernel {ms:.2f} ms "
+            f"(CUDA events), {n / ms * 1e3:.4g} seeds/s; bound {bound_ms:.2f} ms by {limit} "
+            f"({100 * bound_ms / ms:.1f}% of the kernel time; a lane needs {ops.alu:.4g} ALU, "
+            f"{ops.add:.4g} adds) [{card}]")
+    _, x0, sw = w2_inputs(rng, 10, W2_LANES)
+    x0, sw = x0.to(dev), sw.to(dev)
+    ms17 = time_cuda(lambda: electrum.stretch(x0, sw, 10, 17), iters=10, warmup=2)
+    t1 = time.perf_counter()
+    electrum.stretch_plain(x0, sw, 10, 17)
+    torch.cuda.synchronize()
+    plain17 = (time.perf_counter() - t1) * 1e3
+    bound17, by17, _ = bound_of((64 + 12) * W2_LANES, work.electrum_stretch(10, 17), W2_LANES,
+                                int_ops_per_s)
+    say(f"[9b W2 time] {W2_LANES} seeds of 10 bytes x 17 rounds: kernel {ms17:.4f} ms, plain "
+        f"{plain17:.1f} ms, bound {bound17:.5f} ms [{card}]")
+    return err, (ms17, plain17, bound17, by17)
+
+
+def phase_electrum_scan(dev, rng, card: str, decoys: list) -> dict:
+    """9c: ``scan --transform electrum`` over ``ELECTRUM_SEEDS`` unix
+    timestamps (a range source: each one's decimal string, 1000 a batch,
+    one length, so W2 once a batch) with one key planted at derivation
+    index 7: exactly that hit, the JAX command line's stderr; W2 once a
+    batch; the seeds/s."""
+    start = 1_400_000_000 + int(rng.integers(0, 1 << 20))
+    end = start + ELECTRUM_SEEDS - 1
+    planted = start + int(rng.integers(0, ELECTRUM_SEEDS))
+    key = electrum.ElectrumDeriver.from_hex_seed(str(planted)).derive_key(7)
+    addr = KeyDeriver().derive(key).p2pkh_uncompressed
+    targets = write_targets("electrum_targets.txt", [addr], decoys)
+    rc, text, log, launches, secs = run_cli(
+        ["scan", "--transform", "electrum", "--targets", targets, "range", "--start", str(start),
+         "--end", str(end)])
+    batches = -(-ELECTRUM_SEEDS // 1000)
+    want = (f"Loaded {len(decoys) + 1} target addresses\nScanning...\nDone. Inputs: "
+            f"{ELECTRUM_SEEDS}, Keys: {20 * ELECTRUM_SEEDS}, Matches: 1\n")
+    if (rc != 0 or log != want or hit_sources(text) != [(f"{planted}[0/7]", "electrum")]
+            or launches["electrum_stretch"] != batches or launches["smul"] < 2 * batches):
+        raise AssertionError(f"electrum scan: rc {rc}, stderr {log!r}, hits "
+                             f"{hit_sources(text)}, launches {launches}")
+    say(f"[9c electrum scan] {ELECTRUM_SEEDS} timestamps from {start}: exactly the planted "
+        f"{planted}[0/7]; {ELECTRUM_SEEDS / secs:.0f} seeds/s ({20 * ELECTRUM_SEEDS / secs:.0f} "
+        f"keys/s, {secs:.2f} s host wall clock); launches W2 {launches['electrum_stretch']} "
+        f"(one a 1000-seed batch), K3 {launches['smul']}, K4 {launches['inv_affine']}, K2 "
+        f"{launches['hash160']} [{card}]")
+    return launches
+
+
+def phase_multibit(dev, rng, card: str) -> dict:
+    """9d: ``analyze --analyzer multibit-hd --mnemonic-file`` over
+    ``MNEMONICS`` valid mnemonics with the MultiBit bug vector planted on
+    the last line: CONFIRMED with its line, W1 twice (one chunk); then
+    ``bench_wallet("multibit")`` over 1024 of them beside the hashlib host
+    path (the BIP32 tail is Python EC: ~6 ms a mnemonic)."""
+    from vuke_tpu_torch.benchmark import bench_wallet, seeded_mnemonics
+
+    path = kernels.BUILD_DIR / "smoke_mnemonics.txt"
+    path.write_text("\n".join(seeded_mnemonics(MNEMONICS - 1, int(rng.integers(1 << 30)))
+                              + [MNEMONIC_445]) + "\n")
+    idx = int(rng.integers(0, 20))
+    key = multibit.multibit_hd_keys(MNEMONIC_445, "", idx + 1)[idx]
+    rc, text, log, launches, secs = run_cli(["analyze", key.hex(), "--analyzer", "multibit-hd",
+                                             "--mnemonic-file", str(path)])
+    want = (f"CONFIRMED (mnemonic=\"skin join dog ... poverty boy elbow\", "
+            f"path=m/0'/0/{idx}, line={MNEMONICS})")
+    if (rc != 0 or log != "Running multibit-hd (brute-force)...\n"
+            or result_line(text, "multibit-hd") != want or launches["pbkdf2_sha512"] != 2):
+        raise AssertionError(f"analyze multibit-hd: rc {rc}, stderr {log!r}, launches "
+                             f"{launches}\n{text}")
+    say(f"[9d multibit-hd] --mnemonic-file of {MNEMONICS} valid mnemonics, the MultiBit "
+        f"bug vector on the last line: {want}; {MNEMONICS / secs:.0f} mnemonics/s ({secs:.2f} "
+        f"s host wall clock); W1 launches {launches['pbkdf2_sha512']} (two a 4096 chunk) "
+        f"[{card}]")
+    b = bench_wallet("multibit", n=1024)
+    say(f"[9d bench_wallet multibit] {json.dumps(b)} [{card}]")
+    return launches
+
+
+def phase_wallet_scans(dev, rng, card: str, decoys: list) -> list:
+    """9e: planted scans of armory (a range, its host-only numeric path),
+    multibit (a wordlist) and bitimage (files with two addresses a
+    passphrase), then ``generate --transform electrum`` over 4 seeds
+    against the host ``KeyDeriver``."""
+    from vuke_tpu_torch.benchmark import seeded_mnemonics
+    from vuke_tpu_torch.wallets import armory, bitimage
+
+    runs = []
+    start = int(rng.integers(1 << 20, 1 << 40))
+    seed = start + int(rng.integers(0, 256))
+    key = armory.armory_key(seed.to_bytes(32, "big"))
+    targets = write_targets("armory_targets.txt", [KeyDeriver().derive(key).p2pkh_compressed],
+                            decoys)
+    rc, text, log, launches, secs = run_cli(
+        ["scan", "--transform", "armory", "--targets", targets, "range", "--start", str(start),
+         "--end", str(start + 255)])
+    if rc != 0 or hit_sources(text) != [(str(seed), "armory")] or launches["smul"] < 1:
+        raise AssertionError(f"armory scan: rc {rc}, stderr {log!r}, hits {hit_sources(text)}")
+    runs.append(launches)
+    say(f"[9e armory] range of 256 seeds from {start}, two slots, the host computing the keys: "
+        f"exactly {seed}; {secs:.2f} s; launches K3 {launches['smul']}, K2 "
+        f"{launches['hash160']} [{card}]")
+
+    words = seeded_mnemonics(200, int(rng.integers(1 << 30))) + [MNEMONIC_445, "not a mnemonic"]
+    wl = kernels.BUILD_DIR / "smoke_multibit_words.txt"
+    wl.write_text("\n".join(words) + "\n")
+    key = multibit.multibit_hd_keys(MNEMONIC_445, "", 13)[12]
+    targets = write_targets("multibit_targets.txt", [KeyDeriver().derive(key).p2wpkh], decoys)
+    rc, text, log, launches, secs = run_cli(["scan", "--transform", "multibit", "--targets",
+                                             targets, "wordlist", "--file", str(wl)])
+    if rc != 0 or hit_sources(text) != [("skin join...boy elbow[m/0'/0/12]", "multibit")]:
+        raise AssertionError(f"multibit scan: rc {rc}, stderr {log!r}, hits {hit_sources(text)}")
+    runs.append(launches)
+    say(f"[9e multibit] wordlist of {len(words)} lines (201 valid mnemonics): exactly "
+        f"skin join...boy elbow[m/0'/0/12]; {secs:.2f} s; launches K3 {launches['smul']} "
+        f"[{card}]")
+
+    d = kernels.BUILD_DIR / "smoke_bitimage"
+    d.mkdir(parents=True, exist_ok=True)
+    blobs = [bytes(rng.bytes(int(rng.integers(1, 5000)))) for _ in range(3)]
+    for i, blob in enumerate(blobs):
+        (d / f"img{i}.bin").write_bytes(blob)
+    pp = kernels.BUILD_DIR / "smoke_passphrases.txt"
+    pp.write_text("alpha\nbeta\n")
+    key = bitimage.BitimageDeriver(blobs[2], "beta").derive_path("m/84'/0'/0'/0/1")
+    targets = write_targets("bitimage_targets.txt", [KeyDeriver().derive(key).p2wpkh], decoys)
+    rc, text, log, launches, secs = run_cli(
+        ["scan", "--transform", "bitimage", "--targets", targets, "--bitimage-derive-count", "2",
+         "--bitimage-passphrase-wordlist", str(pp), "files", "--dir", str(d)])
+    if rc != 0 or hit_sources(text) != [(f"{d / 'img2.bin'}:beta[m/84'/0'/0'/0/1]", "bitimage")]:
+        raise AssertionError(f"bitimage scan: rc {rc}, stderr {log!r}, hits {hit_sources(text)}")
+    runs.append(launches)
+    say(f"[9e bitimage] 3 files x 2 passphrases x 2 addresses: exactly img2.bin:beta"
+        f"[m/84'/0'/0'/0/1] (host derive) [{card}]")
+
+    rc, text, log, launches, secs = run_cli(["generate", "--transform", "electrum", "range",
+                                             "--start", "1", "--end", "4"])
+    lines = text.splitlines()
+    if rc != 0 or len(lines) != 80:
+        raise AssertionError(f"generate electrum: rc {rc}, {len(lines)} lines, {log!r}")
+    for j, line in enumerate(lines):
+        d_ = electrum.ElectrumDeriver.from_hex_seed(str(j // 20 + 1))
+        if line != host_line(line, d_.derive_key(j % 20)) or not line.startswith(
+                f"{j // 20 + 1}[0/{j % 20}],electrum,"):
+            raise AssertionError(f"generate electrum line {j}: {line}")
+    runs.append(launches)
+    say(f"[9e generate electrum] 4 seeds: 80 lines == the host KeyDeriver, in the JAX order; "
+        f"launches K3 {launches['smul']}, D2 {launches['p2pkh']} [{card}]")
+    return runs
+
+
+def phase_long_cascade(card: str) -> dict:
+    """8b (R1): ``analyze --cascade`` of ``CASCADE`` targets from a planted
+    milksad seed's own keys through the command line, over the full u32
+    space: CONFIRMED."""
+    rng = np.random.default_rng(40)
+    seed = SPACE - 1 - int(rng.integers(1, 1 << 20))
+    raw = np.random.RandomState(seed).bytes(32 * CASCADE)
+    keys = [raw[32 * j:32 * j + 32] for j in range(CASCADE)]
+    bits = [24 + j for j in range(CASCADE)]      # the command line sorts targets by bits
+    cascade = ",".join(f"{b}:0x{apply_mask(k, b):x}" for b, k in zip(bits, keys))
+    text, launches = analyze_cli([rng.bytes(32).hex(), "--analyzer", "milksad", "--cascade",
+                                  cascade], f"milksad --cascade of {CASCADE} targets", SPACE,
+                                 card, "Running milksad (brute-force)...\n")
+    if not result_line(text, "milksad").startswith(f"CONFIRMED (seed = {seed}, cascade=["):
+        raise AssertionError(f"milksad --cascade of {CASCADE}: {result_line(text, 'milksad')}")
+    return launches
+
 
 def main() -> int:
     dev, card, int_ops_per_s = phase_environment()
@@ -2116,7 +2489,13 @@ def main() -> int:
     sweep_errs, sweep_times = phase_sweep_kernels(dev, rng, card, int_ops_per_s)
     errs |= sweep_errs
     times |= sweep_times
-    runs += phase_analyze(dev, rng, card) + [phase_provider_scan(card)]
+    runs += (phase_analyze(dev, rng, card) + [phase_long_cascade(card)]
+             + [phase_provider_scan(card)])
+    errs["pbkdf2_sha512"], times["pbkdf2_sha512"] = phase_w1(dev, rng, card, int_ops_per_s)
+    errs["electrum_stretch"], times["electrum_stretch"] = phase_w2(dev, rng, card,
+                                                                   int_ops_per_s)
+    runs += ([phase_electrum_scan(dev, rng, card, decoys), phase_multibit(dev, rng, card)]
+             + phase_wallet_scans(dev, rng, card, decoys))
     summary = {"kernels": [
         {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": sum(run[name] for run in runs), "max_abs_err": errs[name],

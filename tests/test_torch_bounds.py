@@ -82,6 +82,32 @@ def test_counted_mt19937_is_mt19937(seed):
     assert t.ops == work.Ops()
 
 
+@pytest.mark.parametrize("n", [0, 3, 111])
+def test_counted_sha512_is_sha512(n):
+    """The counted SHA-512 compression (W1's bound) on known words computes
+    the digest and counts nothing; W1's count is its setup plus 2047 times
+    one iteration, W2's a compression a block a round, the 32-byte seed's
+    second block (padding alone) folding its schedule, where 33 bytes' does
+    not."""
+    import hashlib
+    from vuke_tpu_torch.cores import sha512
+    msg = bytes(range(n))
+    blk = msg + b"\x80" + b"\x00" * (111 - n) + (8 * n).to_bytes(16, "big")
+    words = [sha512.split(int.from_bytes(blk[8 * i:8 * i + 8], "big")) for i in range(16)]
+    t = work.Trace()
+    out = work.sha512_block(t, sha512.iv(), words)
+    assert b"".join(((h << 32) | l).to_bytes(8, "big") for h, l in out) == (
+        hashlib.sha512(msg).digest())
+    assert t.ops == work.Ops()
+    step = work.pbkdf2_sha512(3) - work.pbkdf2_sha512(2)
+    assert work.pbkdf2_sha512(2048) == work.pbkdf2_sha512(2) + 2046 * step
+    assert 2 * step.alu > work.pbkdf2_sha512(1).alu > step.alu
+    one, two = work.electrum_stretch(23, 1), work.electrum_stretch(24, 1)
+    assert work.electrum_stretch(10, 99_999) == 99_999 * work.electrum_stretch(10, 1)
+    assert one.alu < two.alu < 2 * one.alu + 1
+    assert work.electrum_stretch(32, 1).alu < work.electrum_stretch(33, 1).alu
+
+
 def test_trace_folds_known_terms():
     t = work.Trace()
     assert t.add(1, 2, 3) == 6 and t.ops == work.Ops()

@@ -295,7 +295,7 @@ def test_sweep_kernels_match_plain(dev):
     depth 10) against their plain versions on the card, 4096 lanes across
     the carry and the u32 wrap, hits planted (chip_smoke phase 8a)."""
     held = chip_smoke.sweep_against_plain(dev, np.random.default_rng(3), 4096, 4096)
-    assert held == {"sweep_prng": (68, 0), "sweep_chain": (24, 0)}
+    assert held == {"sweep_prng": (74, 0), "sweep_chain": (28, 0)}
 
 
 def test_sweep_launch_failure_raises(dev):
@@ -304,7 +304,24 @@ def test_sweep_launch_failure_raises(dev):
     from vuke_tpu_torch.cores import sweep
 
     rec = torch.empty(2, dtype=torch.int64, device=dev)
-    targets = sweep.Compare("exact", words=(0,) * 8).packed
+    target0 = sweep.Compare("exact", words=(0,) * 8).target0
     with pytest.raises(RuntimeError, match="kernel launch failed"):
-        sweep.PRNG_KERNEL.launch(dev, 0, 0, 1024, 9, 0, 1, 0, 1, 0, targets.ctypes.data,
+        sweep.PRNG_KERNEL.launch(dev, 0, 0, 1024, 9, 0, 1, 0, 1, 0, target0.ctypes.data, 0,
                                  rec.data_ptr())
+
+
+def test_w1_matches_plain_and_hashlib(dev):
+    """W1 against its plain version at 2 and 7 iterations (keys across the
+    128-byte edge, salts to 107 bytes), one launch each, and at 2048
+    against hashlib and the Trezor vector (chip_smoke phase 9a)."""
+    errs = chip_smoke.w1_against_plain(dev, np.random.default_rng(5), 512)
+    assert errs == {2: 0, 7: 0}
+    chip_smoke.w1_full(dev, np.random.default_rng(5), 64, 16)
+
+
+def test_w2_matches_plain_and_hashlib(dev):
+    """W2 against its plain version at 1, 2 and 17 rounds at every length
+    edge, one launch each, and at 99,999 rounds against hashlib and the
+    Electrum vector through master_pubkeys_device (chip_smoke phase 9b)."""
+    assert chip_smoke.w2_against_plain(dev, np.random.default_rng(6), 256) == 0
+    chip_smoke.w2_full(dev, np.random.default_rng(6), 8)

@@ -176,8 +176,9 @@ def test_checkpoint_resumes_and_a_rerun_does_nothing(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["generate", "--storage", "out", "range", "--start", "1", "--end", "2"],
     ["generate", "--cloud-upload", "range", "--start", "1", "--end", "2"],
-    ["analyze", "0x1", "--analyzer", "multibit-hd", "--device", "cpu"],
-    ["generate", "--transform", "armory", "range", "--start", "1", "--end", "2"],
+    ["generate", "--iceberg-catalog", "c", "range", "--start", "1", "--end", "2"],
+    ["generate", "--transform", "armory", "--chunk-bytes", "1M", "range", "--start", "1",
+     "--end", "2"],
     ["query"],
 ])
 def test_what_is_not_ported_stops(argv):

@@ -22,7 +22,7 @@ from vuke_tpu.transforms import parse_transform as jparse
 from vuke_tpu.transforms import registry as jregistry
 from vuke_tpu_torch.cores import hash160, keygen, lcg, md5, sha256_chain, xorshift
 from vuke_tpu_torch.kernels import work
-from vuke_tpu_torch.transforms import NotPortedError, parse_transform
+from vuke_tpu_torch.transforms import parse_transform
 from vuke_tpu_torch.transforms import registry
 
 LANES = 256
@@ -111,8 +111,13 @@ def test_parse_transform_errors_match_jax(name):
 
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_wallet_transforms_are_not_ported(name):
-    with pytest.raises(NotPortedError, match="is not ported yet"):
-        parse_transform(name)
+    """The wallet names, which the port once refused as not ported: now
+    the JAX registry's spec, its name, paths and slots
+    (``tests/test_torch_wallets.py`` holds their keys)."""
+    spec = parse_transform(name)
+    want = jparse(name)
+    assert (spec.name, spec.numeric is None, spec.string.slots) == (
+        want.name, want.numeric is None, tuple(want.string.slots))
 
 
 def test_constant_tables_match_jax():

@@ -125,10 +125,12 @@ def test_cli_scan_prints_the_hit(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["scan", "--transform", "electrum", "--targets", "x", "range", "--start", "1", "--end", "2"],
+    ["scan", "--transform", "electrum", "--targets", "x", "--cloud-bucket", "b", "range",
+     "--start", "1", "--end", "2"],
     ["scan", "--transform", "milksad", "--targets", "x", "--storage", "d", "wordlist",
      "--file", "x"],
-    ["generate", "--bitimage-path", "m/0", "range", "--start", "1", "--end", "2"],
+    ["generate", "--bitimage-path", "m/0", "--compression", "zstd", "range", "--start", "1",
+     "--end", "2"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -5,14 +5,16 @@ reference.  This package imports ``torch`` and never ``jax``, nor anything
 of ``vuke_tpu``: it keeps its own copies of the host modules it needs
 (``ecc/ref.py``, ``encode.py``, ``derive.py``, ``output/``,
 ``progress.py``, ``parallel/checkpoint.py``, ``sources.py``,
-``provider.py``).  Ported so far: ``generate``, ``scan``, ``single`` and
-``warmup`` over every source for every transform but the wallet ones, with
-target files or ``boha:...`` provider references, and ``analyze`` with
-every analyzer but multibit-hd; with the six Pallas kernels on those paths
-(MT19937 keygen, the two fixed-base scalar multiplications, the sequential
-scan's point addition, batch inversion + affine, hash160) and the keygens,
-string digests, P2PKH encoding and the reverse sweeps rewritten as CUDA
-C++ for sm_90a under ``csrc/``.  Each kernel has a plain PyTorch version
+``provider.py``, ``wallets/``).  Ported so far: ``generate``, ``scan``,
+``single`` and ``warmup`` over every source for every transform, the
+wallet ones included, with target files or ``boha:...`` provider
+references, and ``analyze`` with every analyzer; with the six Pallas
+kernels on those paths (MT19937 keygen, the two fixed-base scalar
+multiplications, the sequential scan's point addition, batch inversion +
+affine, hash160) and the keygens, string digests, P2PKH encoding, the
+reverse sweeps, PBKDF2-HMAC-SHA512 and Electrum's key stretch rewritten as
+CUDA C++ for sm_90a under ``csrc/``.  Not yet ported: storage, cloud
+upload, Iceberg, ``query`` and more than one card.  Each kernel has a plain PyTorch version
 beside it, which a CPU tensor goes through.
 """
 

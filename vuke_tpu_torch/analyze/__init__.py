@@ -3,12 +3,11 @@
 The port of ``vuke_tpu/analyze/__init__.py`` (the reference's
 AnalyzerType::{all,fast,from_str} and its run_analyze): the analyzers run
 in turn over the parsed key with the mask and cascade config, their sweeps
-on the card (S1, S2) unless ``device`` is "cpu".  The wallet analyzer
+on the card (S1, S2) unless ``device`` is "cpu"; the wallet analyzer
 (``multibit``/``multibit-hd``, with ``--mnemonic``/``--mnemonic-file``)
-waits for the wallet port and stops with "not ported yet", as does a
-cascade of more than ``cores.sweep.MAX_TARGETS`` targets; the JAX
-package's profiler hook (``telemetry.profile_trace``) is a JAX tool and
-has no counterpart.
+is ``multibit.py``, its PBKDF2 on the card (W1).  The JAX package's
+profiler hook (``telemetry.profile_trace``) is a JAX tool and has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -16,7 +15,6 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from ..cores.sweep import MAX_TARGETS
 from .analyzers import (  # noqa: F401
     AnalysisConfig, AnalysisResult, AnalysisStatus, DirectAnalyzer,
     HeuristicAnalyzer, KeyMetadata, LcgAnalyzer, MilksadAnalyzer,
@@ -26,13 +24,6 @@ from .analyzers import (  # noqa: F401
 from .key_parser import ParseError, apply_mask, parse_cascade, parse_private_key  # noqa: F401
 from .output import format_results, format_results_json  # noqa: F401
 from .sweeps import CARD_SWEEP_BATCH, DEFAULT_SWEEP_BATCH
-
-# the analyzers that sweep under a cascade when one is given
-_CASCADE_SWEEPS = (MilksadAnalyzer, Mt64Analyzer, XorshiftAnalyzer, Sha256ChainAnalyzer)
-
-
-def _not_ported(what: str):
-    raise SystemExit(f"vuke_tpu_torch: {what} is not ported yet")
 
 
 def all_analyzers() -> List:
@@ -61,7 +52,9 @@ def analyzer_from_str(s: str, mnemonic=None, mnemonic_file=None, passphrase="",
     if sl == "mt64":
         return Mt64Analyzer()
     if sl in ("multibit-hd", "multibit"):
-        _not_ported(f"analyzer {s!r}")
+        from .multibit import MultibitAnalyzer
+        return MultibitAnalyzer(mnemonic=mnemonic, mnemonic_file=mnemonic_file,
+                                passphrase=passphrase)
     if sl == "direct":
         return DirectAnalyzer()
     if sl == "heuristic":
@@ -88,8 +81,6 @@ def run_analyze(key_str: str, fast: bool = False, mask: Optional[int] = None,
                 batch: Optional[int] = None, max_seeds: Optional[int] = None,
                 checkpoint: Optional[str] = None, out=None, device: str = "cuda"):
     out = out if out is not None else sys.stdout
-    if mnemonic is not None or mnemonic_file is not None:
-        _not_ported("the multibit-hd analyzer (--mnemonic, --mnemonic-file)")
     if batch is None:
         # the JAX rule "accelerator -> 2^24": one launch a batch, so a
         # smaller batch spends the card's time on the host's round trip
@@ -139,12 +130,6 @@ def run_analyze(key_str: str, fast: bool = False, mask: Optional[int] = None,
         selected = fast_analyzers()
     else:
         selected = all_analyzers()
-
-    n_cascade = len(config.cascade_targets or ())
-    if n_cascade > MAX_TARGETS and any(isinstance(a, _CASCADE_SWEEPS) for a in selected):
-        # the JAX package runs milksad's and mt64's state past its init block
-        _not_ported(f"a cascade of {n_cascade} targets (the sweeps hold at most "
-                    f"{MAX_TARGETS})")
 
     from ..progress import Progress
 

@@ -24,7 +24,11 @@ fenced by ``torch.cuda.synchronize()``, best of 3 windows.  Beside them:
   host) into a discarding sink and into a file;
 - ``bench_strings``: words/s and keys/s of a wordlist scan through
   ``pipeline.StringDriver``, batch by batch as ``sources.WordlistSource``
-  feeds it.  ``profile_*``
+  feeds it;
+- ``bench_wallet``: mnemonics/s of the multibit-hd dictionary attack (W1
+  on the card, beside the hashlib host path's rate) or seeds/s of an
+  electrum scan over timestamps (W2 and K3 -> K4 on the card), each with
+  the host's share by step.  ``profile_*``
 say where a batch's time goes (``torch.profiler``); ``kernel_cases`` holds
 each kernel and its plain version at the derive's shapes, for timing them
 alone.  They run only on a CUDA device: a measurement never falls back to
@@ -162,7 +166,9 @@ def _device_events(prof, iters: int) -> dict:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:120]
+            # a template's instantiations count under its name
+            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0].split("<")[0][:120]
             ms, count = out.get(name, (0.0, 0.0))
             out[name] = (ms + us / 1e3 / iters, count + e.count / iters)
     return out
@@ -705,5 +711,120 @@ def bench_analyze(family: str = "milksad", mode: str = "exact", max_seeds: int =
            "chain_positions_per_seed": 10 if family == "sha256_chain" else None,
            "details": result.details}
     out.update({f"{k}_per_batch": v for k, v in _breakdown(events, wall_ms, 16).items()})
+    out["device"] = torch.cuda.get_device_name(dev)
+    return out
+
+
+def seeded_mnemonics(n: int, seed: int = 7) -> list:
+    """``n`` valid 12-word mnemonics (BIP39 words; the checksum is not
+    checked), from ``seed``."""
+    from .wallets import bip39
+
+    wl = np.array(bip39.wordlist())
+    idx = np.random.default_rng(seed).integers(0, 2048, (n, 12))
+    return [" ".join(row) for row in wl[idx].tolist()]
+
+
+def bench_wallet(wallet: str = "multibit", n: int | None = None, seed: int = 7) -> dict:
+    """The wallet paths' rates on the card, on the host's clock, each run
+    once under ``torch.profiler`` (device busy, launches and the idle share
+    come from the same run; the path's own host work is Python, which the
+    profiler does not slow).
+
+    multibit: mnemonics/s of the dictionary attack over ``n`` (2^14) seeded
+    valid mnemonics in the analyzer's chunks of 4096
+    (``wallets/multibit.multibit_hd_keys_batch``: W1 twice a chunk, the
+    BIP39 re-encoding and the BIP32 tail on the host), the host seconds of
+    each step, and the hashlib host path's rate on 256 of the same
+    mnemonics.
+
+    electrum: seeds/s of ``scan --transform electrum`` over ``n`` (2^16)
+    unix timestamps from 1,400,000,000 through ``StringDriver`` as a range
+    source feeds it (``sources.STRING_BATCH`` decimal strings a batch: W2
+    once, the master public keys through K3 -> K4, 20 child keys a seed on
+    the host, their derive and match on the card), with one planted key at
+    derivation index 7 that must be found, and the host seconds of each
+    step."""
+    import io
+
+    dev = require_cuda()
+    acc: dict = {}
+    if wallet == "multibit":
+        from .analyze.multibit import CHUNK
+        from .wallets import bip39, multibit, pbkdf2_device
+        from .wallets.pbkdf2_device import KERNEL as W1
+
+        n = n or 1 << 14
+        ms = seeded_mnemonics(n, seed)
+        multibit.multibit_hd_keys_batch(ms[:64], "", 20, device=dev)
+        undo = [_wrap(pbkdf2_device, "pbkdf2_hmac_sha512_batch", acc, "w1"),
+                _wrap(bip39, "entropy_to_mnemonic", acc, "bip39"),
+                _wrap(multibit, "_tail", acc, "bip32")]
+        done = []
+        try:
+            _, events, wall_ms = _profiled(lambda: done.append(sum(
+                len(multibit.multibit_hd_keys_batch(ms[i:i + CHUNK], "", 20, device=dev))
+                for i in range(0, n, CHUNK))), 1, {W1.entry})
+        finally:
+            for u in undo:
+                u()
+        secs = wall_ms / 1e3
+        runs = len(done)
+        host_n = min(n, 256)
+        t1 = time.perf_counter()
+        multibit.multibit_hd_keys_batch(ms[:host_n], "", 20, device=None)
+        host_secs = time.perf_counter() - t1
+        out = {"metric": "multibit_dictionary_mnemonics_per_sec", "mnemonics": done[-1],
+               "seconds": secs, "mnemonics_per_sec": done[-1] / secs,
+               "host_w1_call_s": acc.get("w1", 0.0) / runs, "host_bip39_s": acc["bip39"] / runs,
+               "host_bip32_s": acc["bip32"] / runs,
+               "host_other_s": secs - sum(acc.values()) / runs,
+               "hashlib_mnemonics": host_n, "hashlib_seconds": host_secs,
+               "hashlib_mnemonics_per_sec": host_n / host_secs, "chunk": CHUNK}
+        out.update(_breakdown(events, wall_ms, 1))
+    elif wallet == "electrum":
+        from . import sources
+        from .wallets import electrum
+        from .wallets.electrum import KERNEL as W2
+
+        n = n or 1 << 16
+        start = 1_400_000_000
+        spec = parse_transform("electrum")
+        planted = start + n // 3
+        key = electrum.ElectrumDeriver.from_hex_seed(str(planted)).derive_key(7)
+        address = KeyDeriver().derive(key).p2pkh_compressed
+        one = TargetPools.from_addresses([address])
+        rng = np.random.default_rng(seed)
+        pools = TargetPools(np.concatenate([one.comp, rng.integers(-(1 << 63), 1 << 63, 4095)]),
+                            np.concatenate([one.uncomp, rng.integers(-(1 << 63), 1 << 63, 4095)]),
+                            one.targets)
+        buf = io.StringIO()
+        driver = StringDriver([spec], pools, ConsoleOutput(buf), device=dev)
+        sources._strings_over_range(driver, 1_300_000_000, 1_300_000_000 + 63, False)
+        undo = [_wrap(electrum, "stretch_keys_device", acc, "w2"),
+                _wrap(electrum, "master_pubkeys_device", acc, "mpk"),
+                _wrap(electrum.ElectrumDeriver, "derive_keys", acc, "children"),
+                _wrap(driver, "_device_match", acc, "match")]
+        stats = []
+        try:
+            _, events, wall_ms = _profiled(lambda: stats.append(sources._strings_over_range(
+                driver, start, start + n - 1, False)), 1, {W2.entry})
+        finally:
+            for u in undo:
+                u()
+        secs, runs, st = wall_ms / 1e3, len(stats), stats[-1]
+        if st.matches_found != 1 or f"Source: {planted}[0/7]\n" not in buf.getvalue():
+            raise RuntimeError(f"bench_wallet electrum: the planted seed {planted} was not "
+                               f"found exactly once ({st.matches_found} matches)")
+        out = {"metric": "electrum_scan_seeds_per_sec", "seeds": n, "seconds": secs,
+               "seeds_per_sec": n / secs, "keys_per_sec": st.keys_generated / secs,
+               "string_batch": sources.STRING_BATCH}
+        out.update({f"host_{k}_s": v / runs for k, v in (
+            ("w2_call", acc.get("w2", 0.0)), ("master_pubkeys", acc.get("mpk", 0.0)),
+            ("child_keys", acc["children"]), ("match", acc["match"]))})
+        out["host_other_s"] = secs - sum(acc.values()) / runs
+        out.update(_breakdown(events, wall_ms, 1))
+    else:
+        raise ValueError(f"bench_wallet: unknown wallet {wallet!r}; multibit or electrum")
     out["device"] = torch.cuda.get_device_name(dev)
     return out

@@ -9,14 +9,17 @@
     python -m vuke_tpu_torch bench --scan T [--pool N] [--batch N]
     python -m vuke_tpu_torch bench --generate T | --strings T [--batch N]
     python -m vuke_tpu_torch bench --analyze F [--mode M]
+    python -m vuke_tpu_torch bench --wallet multibit|electrum
     python -m vuke_tpu_torch analyze KEY [--fast] [--mask N] [--cascade C]
-        [--analyzer A ...] [--chain-depth D] [--puzzle P] [--verify C] [--json]
+        [--analyzer A ...] [--mnemonic M | --mnemonic-file F] [--passphrase P]
+        [--chain-depth D] [--puzzle P] [--verify C] [--json]
         [--batch N] [--max-seeds N] [--checkpoint FILE] [--device D]
 
 OPTIONS are those of ``vuke_tpu/cli.py`` that the port honours:
 ``--transform`` (repeatable, default sha256), ``--network``, ``-v``,
-``-o FILE``, ``--batch``, ``--checkpoint`` and ``--device`` (cuda, the
-kernels, or cpu, the plain versions).  SOURCE is ``range --start A --end
+``-o FILE``, ``--batch``, ``--checkpoint``, the ``--bitimage-*`` options
+(for ``--transform bitimage``) and ``--device`` (cuda, the kernels, or
+cpu, the plain versions).  SOURCE is ``range --start A --end
 B``, ``wordlist --file F``, ``timestamps --start DATE --end DATE
 [--microseconds]``, ``stdin`` or ``files --file F | --dir D``.  Stdout and
 stderr are the JAX package's for the same command line (``vuke_tpu/cli.py:
@@ -25,14 +28,16 @@ stderr are the JAX package's for the same command line (``vuke_tpu/cli.py:
 or ``Generating keys...``, and ``Done. Inputs: N, Keys: K, Matches: M`` on
 stderr.  A range shorter than the batch clamps it, 1024-aligned.
 ``--targets`` takes a file or a provider reference (``boha:...``,
-``provider.py``).  ``analyze`` is ``vuke_tpu/cli.py:543-575``: every
-option, its stdout and stderr, its sweeps on the card (S1 and S2) unless
-``--device cpu``.  The storage, cloud, Iceberg and bitimage options, the
-wallet transforms, the multibit-hd analyzer and ``query`` stop with a
-"not ported yet" error.  ``single`` runs on the host alone, as the JAX
-package's does.  ``VUKE_TPU_SMUL13=0`` in the environment switches the
-scalar multiplication from K3 to K6 and ``VUKE_TPU_SEQUENTIAL=0`` turns the
-sequential path off, as they do for the JAX package.
+``provider.py``).  Every transform of the JAX registry runs, the wallet
+ones (electrum, electrum:change, multibit, armory, bitimage) included.
+``analyze`` is ``vuke_tpu/cli.py:543-575``: every option, its stdout and
+stderr, its sweeps on the card (S1 and S2) and the multibit-hd analyzer's
+PBKDF2 (W1) unless ``--device cpu``.  The storage, cloud and Iceberg
+options and ``query`` stop with a "not ported yet" error.  ``single`` runs
+on the host alone, as the JAX package's does.  ``VUKE_TPU_SMUL13=0`` in
+the environment switches the scalar multiplication from K3 to K6 and
+``VUKE_TPU_SEQUENTIAL=0`` turns the sequential path off, as they do for
+the JAX package.
 """
 
 from __future__ import annotations
@@ -53,19 +58,17 @@ from .matcher import TargetPools
 from .output import ConsoleOutput
 from .pipeline import DEFAULT_BATCH, ORDER_BATCH, ForwardDriver, ProcessStats, StringDriver
 from .progress import Progress
-from .transforms import NotPortedError, parse_transform
+from .transforms import parse_transform
 
 # options of vuke_tpu/cli.py that the port takes and refuses: storage,
-# cloud upload, Iceberg and bitimage (their values default to None)
+# cloud upload and Iceberg (their values default to None)
 NOT_PORTED_OPTIONS = (
     ("--storage", {}), ("--chunk-records", {}), ("--chunk-bytes", {}), ("--compression", {}),
     ("--compression-level", {}), ("--cloud-upload", {"action": "store_const", "const": True}),
     ("--cloud-endpoint", {}), ("--cloud-bucket", {}),
     ("--cloud-delete-local", {"action": "store_const", "const": True}),
     ("--cloud-fail-fast", {"action": "store_const", "const": True}),
-    ("--iceberg-catalog", {}), ("--iceberg-namespace", {}), ("--iceberg-table", {}),
-    ("--bitimage-path", {}), ("--bitimage-passphrase", {}),
-    ("--bitimage-passphrase-wordlist", {}), ("--bitimage-derive-count", {}))
+    ("--iceberg-catalog", {}), ("--iceberg-namespace", {}), ("--iceberg-table", {}))
 
 
 def _not_ported(what: str):
@@ -90,13 +93,21 @@ def _device(name: str) -> torch.device:
     return require_cuda() if name == "cuda" else torch.device(name)
 
 
-def _parse_specs(names):
+def _parse_specs(names, args=None):
+    """The specs of ``--transform`` values; ``bitimage`` takes the
+    ``--bitimage-*`` options of ``args`` (``vuke_tpu/cli.py:236-252``)."""
+    from .transforms.wallets import bitimage_spec
+
     specs = []
     for t in names:
         try:
-            specs.append(parse_transform(t))
-        except NotPortedError:
-            _not_ported(f"transform {t!r}")
+            if t.lower() == "bitimage" and args is not None:
+                specs.append(bitimage_spec(
+                    path=args.bitimage_path, passphrase=args.bitimage_passphrase,
+                    passphrase_wordlist=args.bitimage_passphrase_wordlist,
+                    derive_count=args.bitimage_derive_count))
+            else:
+                specs.append(parse_transform(t))
         except ValueError as e:
             _usage_error(str(e))
     return specs
@@ -202,13 +213,13 @@ def _run_forward(args, specs, source, pools) -> int:
 
 def cmd_generate(args) -> int:
     _check_ported(args)
-    specs = _parse_specs(args.transform or ["sha256"])
+    specs = _parse_specs(args.transform or ["sha256"], args)
     return _run_forward(args, specs, _make_source(args), None)
 
 
 def cmd_scan(args) -> int:
     _check_ported(args)
-    specs = _parse_specs(args.transform or ["sha256"])
+    specs = _parse_specs(args.transform or ["sha256"], args)
     source = _make_source(args)
     return _run_forward(args, specs, source, _load_targets(args.targets))
 
@@ -243,8 +254,6 @@ def cmd_single(args) -> int:
     each key: ``vuke_tpu/cli.py:469-514`` line for line, on the host."""
     try:
         spec = parse_transform(args.transform)
-    except NotPortedError:
-        _not_ported(f"transform {args.transform!r}")
     except ValueError as e:
         _usage_error(str(e))
     deriver = KeyDeriver(encode.parse_network(args.network))
@@ -256,7 +265,7 @@ def cmd_single(args) -> int:
         for s_i, slot in enumerate(spec.string.slots):
             if valid is not None and not valid[0, s_i]:
                 continue
-            keys.append((f"{p}{slot}", kw[0, s_i].astype(">u4").tobytes()))
+            keys.append((f"{spec.string.label(p)}{slot}", kw[0, s_i].astype(">u4").tobytes()))
     if not keys:
         print("No key generated from passphrase.", file=sys.stderr)
         return 0
@@ -281,7 +290,9 @@ def cmd_warmup(args) -> int:
     """Build and launch once, at the batch, every kernel each transform's
     scan of a range runs: two superbatches from seed 2 (the first below
     batch + 2, so a sequential slot takes the keygen there and the
-    sequential path, table included, in the second)."""
+    sequential path, table included, in the second).  A string-only or
+    host-only transform is skipped with the JAX package's line
+    (``vuke_tpu/cli.py:448-455``)."""
     from .kernels import Kernel
 
     dev = _device(args.device)
@@ -289,6 +300,12 @@ def cmd_warmup(args) -> int:
     pools = TargetPools.from_addresses(["1BgGZ9tcN4rm9KBzDn7KprQz87SZ26SAMH"])
     for t in args.transform or ["milksad", "direct"]:
         spec = _parse_specs([t])[0]
+        if spec.numeric is None:
+            print(f"skipping {t}: string transform (host path)", file=sys.stderr)
+            continue
+        if spec.numeric.host_only:
+            print(f"skipping {t}: host-only transform", file=sys.stderr)
+            continue
         before = {name: k.launches for name, k in Kernel.registry.items()}
         t0 = time.perf_counter()
         ForwardDriver([spec], pools, batch=b, device=dev).run_range(2, 2 * b + 1)
@@ -321,6 +338,9 @@ def cmd_bench(args) -> int:
 
     if args.analyze:
         print(json.dumps(benchmark.bench_analyze(args.analyze, args.mode)), flush=True)
+        return 0
+    if args.wallet:
+        print(json.dumps(benchmark.bench_wallet(args.wallet)), flush=True)
         return 0
     if args.transform:
         for name in args.transform:
@@ -363,6 +383,13 @@ def _run_options(p: argparse.ArgumentParser):
                         "(numeric sources)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (the plain versions)")
+    p.add_argument("--bitimage-path", default="m/84'/0'/0'/0/0",
+                   help="bitimage: the BIP32 path (default m/84'/0'/0'/0/0)")
+    p.add_argument("--bitimage-passphrase", default="", help="bitimage: the BIP39 passphrase")
+    p.add_argument("--bitimage-passphrase-wordlist", default=None,
+                   help="bitimage: a file of passphrases, one a line, each tried")
+    p.add_argument("--bitimage-derive-count", type=int, default=1,
+                   help="bitimage: addresses a passphrase, the path's last index incremented")
     for flag, kw in NOT_PORTED_OPTIONS:
         p.add_argument(flag, default=None, help="not ported yet", **kw)
 
@@ -441,6 +468,10 @@ def build_parser() -> argparse.ArgumentParser:
                             "kernel's device ms, instead")
     bench.add_argument("--mode", default="exact", choices=("exact", "mask", "cascade"),
                        help="the --analyze sweep's compare (default exact)")
+    bench.add_argument("--wallet", choices=("multibit", "electrum"),
+                       help="mnemonics/s of the multibit-hd dictionary attack (beside the "
+                            "hashlib host path's) or seeds/s of an electrum timestamp scan, "
+                            "with the kernel's time and the host's, instead")
     bench.set_defaults(func=cmd_bench)
 
     an = sub.add_parser("analyze", help="analyze a private key for vulnerable origins")
@@ -450,9 +481,10 @@ def build_parser() -> argparse.ArgumentParser:
     an.add_argument("--cascade", default=None, help="bits:target,bits:target,... or boha:...")
     an.add_argument("--analyzer", dest="analyzers", action="append",
                     help="analyzer to run (repeatable; default all)")
-    an.add_argument("--mnemonic", default=None, help="not ported yet (multibit-hd)")
-    an.add_argument("--mnemonic-file", default=None, help="not ported yet (multibit-hd)")
-    an.add_argument("--passphrase", default="")
+    an.add_argument("--mnemonic", default=None, help="multibit-hd: the mnemonic to check")
+    an.add_argument("--mnemonic-file", default=None,
+                    help="multibit-hd: a file of candidate mnemonics, one a line")
+    an.add_argument("--passphrase", default="", help="multibit-hd: the BIP39 passphrase")
     an.add_argument("--chain-depth", type=int, default=10)
     an.add_argument("--puzzle", default=None, help="boha:collection:id[:n]")
     an.add_argument("--verify", default=None, help="boha:collection")

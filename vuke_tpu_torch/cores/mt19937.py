@@ -35,19 +35,26 @@ MAX_OUTPUTS = 227        # output 226 twists state word 623, the last of the ini
 
 
 def mt19937_outputs_plain(s: torch.Tensor, n_out: int = 8) -> list:
-    """int64-held u32 seeds -> the first ``n_out`` tempered outputs (int64),
-    ``n_out`` at most ``MAX_OUTPUTS``.  Output k twists state words k, k + 1
-    and k + 397, so the recurrence runs to n_out + 396 and keeps those taps."""
-    if not 1 <= n_out <= MAX_OUTPUTS:
-        raise ValueError(f"mt19937: {n_out} outputs; at most {MAX_OUTPUTS} are kept")
+    """int64-held u32 seeds -> the first ``n_out`` tempered outputs (int64).
+    Output k twists state words k, k + 1 and k + 397, so the recurrence runs
+    to n_out + 396 and keeps those taps; past the 624-word init block (more
+    than ``MAX_OUTPUTS`` outputs) every word is kept and the sequence goes on
+    with the real twist, s[k] = s[k-227] ^ twist(s[k-624], s[k-623])
+    (``vuke_tpu/cores/mt19937.py:53-60``)."""
+    if n_out < 1:
+        raise ValueError(f"mt19937: {n_out} outputs")
+    far = n_out > MAX_OUTPUTS
     taps = {0: s}
     prev = s
-    for i in range(1, n_out + 397):
+    for i in range(1, min(n_out + 397, 624)):
         # _F32 < 2^31 and prev < 2^32: the product fits int64
         cur = (_F32 * (prev ^ (prev >> 30)) + i) & MASK32
-        if i <= n_out or i >= 397:
+        if far or i <= n_out or i >= 397:
             taps[i] = cur
         prev = cur
+    for k in range(624, n_out + 397):
+        y = (taps[k - 624] & _UPPER) | (taps[k - 623] & _LOWER)
+        taps[k] = taps[k - 227] ^ (y >> 1) ^ ((y & 1) * _MATRIX_A)
     out = []
     for i in range(n_out):
         y = (taps[i] & _UPPER) | (taps[i + 1] & _LOWER)
@@ -106,21 +113,30 @@ def mt64_key_words_plain(hi: torch.Tensor, lo: torch.Tensor, n_keys: int = 1):
     mt64_key_words``; more keys continue the stream, as
     ``vuke_tpu/analyze/analyzers.py::Mt64Analyzer._keystream`` does).
     Output k twists state words k, k + 1 and k + 156
-    (``vuke_tpu/cores/mt19937.py:116-135``); only those of the init
-    recurrence are kept, so 4 x ``n_keys`` is at most ``MAX_OUTPUTS_64``."""
+    (``vuke_tpu/cores/mt19937.py:116-135``); past the 312-word init block
+    (more than ``MAX_OUTPUTS_64`` outputs) every word is kept and the
+    sequence goes on with the real twist, s[k] = s[k-156] ^ twist(s[k-312],
+    s[k-311])."""
     from .common import u64_and, u64_const, u64_mul_lo, u64_or, u64_shl, u64_shr, u64_xor
 
     n_out = 4 * n_keys
-    if not 1 <= n_out <= MAX_OUTPUTS_64:
-        raise ValueError(f"mt64: {n_out} outputs; at most {MAX_OUTPUTS_64} are kept")
+    if n_out < 1:
+        raise ValueError(f"mt64: {n_out} outputs")
+    far = n_out > MAX_OUTPUTS_64
     s = (hi, lo)
     taps = {0: s}
-    for k in range(1, n_out + 156):
+    for k in range(1, min(n_out + 156, 312)):
         x = u64_mul_lo(u64_xor(s, u64_shr(s, 62)), u64_const(_F64))
         low = x[1] + k
         s = ((x[0] + (low >> 32)) & MASK32, low & MASK32)
-        if k <= n_out or k >= 156:
+        if far or k <= n_out or k >= 156:
             taps[k] = s
+    for k in range(312, n_out + 156):
+        y = u64_or(u64_and(taps[k - 312], u64_const(_UPPER64)),
+                   u64_and(taps[k - 311], u64_const(_LOWER64)))
+        odd = y[1] & 1
+        taps[k] = u64_xor(u64_xor(taps[k - 156], u64_shr(y, 1)),
+                          (odd * (_MATRIX_A64 >> 32), odd * (_MATRIX_A64 & MASK32)))
     out = []
     for j in range(n_out):
         y = u64_or(u64_and(taps[j], u64_const(_UPPER64)),

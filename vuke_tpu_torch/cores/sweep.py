@@ -15,7 +15,10 @@ over key words 6 and 7) or "cascade" (key j, or chain position j, against
 target j, for every j).  Each writes a (2,) int64 record: the batch's first
 hit, as the JAX step's argmax of its flat ``ok`` (S1: the lane; S2: lane x
 depth + position, or the lane in a cascade), or ``NONE``; and, when the
-compare tracks it, the number of lanes that pass target 0.
+compare tracks it, the number of lanes that pass target 0.  A cascade
+holds any number of targets, as the JAX package's does: target 0 travels
+with the launch, the rest in a device buffer uploaded once a compare and
+device (``device_targets``).
 
 A record on the card is filled by the kernel; a record on the CPU by the
 plain version beside it (``*_plain``): the port's plain keystreams
@@ -38,19 +41,17 @@ from . import lcg, mt19937, sha256_chain, xorshift
 FAMILIES = ("milksad", "mt64", "lcg", "xorshift")
 MODES = ("exact", "mask", "cascade")
 CHAIN_VARIANTS = sha256_chain.VARIANTS
-# keys a cascade may hold a seed's stream to (csrc/sweep.cuh kMaxTargets):
-# milksad's 28th key is its outputs 216..223, inside the 624-word init block
-MAX_TARGETS = 28
 MAX_LANES = 1 << 32          # a batch's lanes: offsets are u32
 NONE = -1                    # record[0] of a batch without a hit
 
 PRNG_KERNEL = Kernel(
-    "sweep_prng", "vk_sweep_prng", [U32, U32, SIZE, INT, INT, INT, INT, INT, INT, PTR, PTR],
+    "sweep_prng", "vk_sweep_prng",
+    [U32, U32, SIZE, INT, INT, INT, INT, INT, INT, PTR, PTR, PTR],
     source="vuke_tpu_torch/csrc/sweep_prng.cu",
     replaces="vuke_tpu/analyze/sweeps.py:79 SweepProgram (XLA) with "
              "vuke_tpu/cores/pallas_kernels.py:46 _mt_kernel")
 CHAIN_KERNEL = Kernel(
-    "sweep_chain", "vk_sweep_chain", [U32, SIZE, INT, INT, INT, INT, PTR, PTR],
+    "sweep_chain", "vk_sweep_chain", [U32, SIZE, INT, INT, INT, INT, PTR, PTR, PTR],
     source="vuke_tpu_torch/csrc/sweep_chain.cu",
     replaces="vuke_tpu/analyze/sweeps.py:139 ChainSweepProgram (XLA, "
              "vuke_tpu/cores/sha256_chain.py:74)")
@@ -85,9 +86,9 @@ class Compare:
         if self.mode == "exact":
             if len(self.words) != 8 or self.track:
                 raise ValueError("sweep: exact compares 8 key words and tracks nothing")
-        elif not 1 <= len(self.targets) <= (1 if self.mode == "mask" else MAX_TARGETS):
-            raise ValueError(f"sweep: {self.mode} takes 1..{MAX_TARGETS} targets "
-                             f"(one for mask), got {len(self.targets)}")
+        elif not self.targets or (self.mode == "mask" and len(self.targets) != 1):
+            want = "one target" if self.mode == "mask" else "one target or more"
+            raise ValueError(f"sweep: {self.mode} takes {want}, got {len(self.targets)}")
 
     @property
     def n_targets(self) -> int:
@@ -95,14 +96,34 @@ class Compare:
 
     @functools.cached_property
     def packed(self) -> np.ndarray:
-        """The kernels' target array (csrc/sweep.cuh ``Targets``)."""
-        out = np.zeros(6 * MAX_TARGETS, dtype=np.uint32)
+        """The kernels' target words (csrc/sweep.cuh): the 8 words of an
+        exact key, or 6 words a mask or cascade target."""
         if self.mode == "exact":
-            out[:8] = [int(w) & MASK32 for w in self.words]
-        else:
-            for j, (bits, target) in enumerate(self.targets):
-                out[6 * j:6 * j + 6] = mask_words(bits, target)
+            return np.array([int(w) & MASK32 for w in self.words], dtype=np.uint32)
+        return np.array([w for bits, target in self.targets for w in mask_words(bits, target)],
+                        dtype=np.uint32)
+
+    @functools.cached_property
+    def target0(self) -> np.ndarray:
+        """Target 0 as the launch takes it: 8 host words."""
+        out = np.zeros(8, dtype=np.uint32)
+        w = self.packed[:8 if self.mode == "exact" else 6]
+        out[:len(w)] = w
         return out
+
+
+@functools.lru_cache(maxsize=16)
+def device_targets(compare: Compare, device: str):
+    """``compare.packed`` on ``device``, uploaded once (a sweep launches a
+    batch after a batch with the same compare); None for exact."""
+    if compare.mode == "exact":
+        return None
+    return torch.from_numpy(compare.packed.view(np.int32)).to(device)
+
+
+def _targets_ptr(compare: Compare, device: torch.device) -> int:
+    t = device_targets(compare, str(device))
+    return 0 if t is None else t.data_ptr()
 
 
 def _check_record(record: torch.Tensor):
@@ -122,6 +143,21 @@ def mask_ok(key, bits: int, target: int) -> torch.Tensor:
     """Which lanes' key (8 int64 word tensors) pass the mask target."""
     m_hi, m_lo, h_hi, h_lo, t_hi, t_lo = mask_words(bits, target)
     return (((key[6] & m_hi) | h_hi) == t_hi) & (((key[7] & m_lo) | h_lo) == t_lo)
+
+
+def _cascade_ok(keys_of, targets) -> tuple:
+    """(ok, first) of a cascade over every lane: target 0 held against key 0
+    of every lane (``keys_of(None, 1)``), the rest against the keys of the
+    lanes that pass it (``keys_of(index, len(targets))``, their streams from
+    the seed), as the kernels go on only for those lanes."""
+    first = mask_ok(keys_of(None, 1)[0], *targets[0])
+    ok = first.clone()
+    idx = torch.nonzero(first).flatten()
+    if len(targets) > 1 and idx.numel():
+        keys = keys_of(idx, len(targets))
+        ok[idx] = functools.reduce(torch.logical_and, [
+            mask_ok(k, bits, t) for k, (bits, t) in zip(keys[1:], targets[1:])])
+    return ok, first
 
 
 def _fill(record: torch.Tensor, ok: torch.Tensor, first=None):
@@ -165,16 +201,18 @@ def sweep_prng_plain(record: torch.Tensor, start: int, limit: int, family: str, 
     lo = (start & MASK32) + offs
     hi = ((start >> 32) + (lo >> 32)) & MASK32
     lo = lo & MASK32
-    keys = prng_keys_plain(family, variant, big_endian, hi, lo, compare.n_targets)
     if compare.mode == "exact":
         ok = torch.ones(limit, dtype=torch.bool, device=record.device)
-        for w, t in zip(keys[0], compare.words):
+        for w, t in zip(prng_keys_plain(family, variant, big_endian, hi, lo)[0], compare.words):
             ok &= w == int(t)
         _fill(record, ok)
         return record
-    oks = [mask_ok(k, bits, t) for k, (bits, t) in zip(keys, compare.targets)]
-    _fill(record, functools.reduce(torch.logical_and, oks),
-          oks[0] if compare.track else None)
+    ok, first = _cascade_ok(
+        lambda idx, n: prng_keys_plain(family, variant, big_endian,
+                                       hi if idx is None else hi[idx],
+                                       lo if idx is None else lo[idx], n),
+        compare.targets)
+    _fill(record, ok, first if compare.track else None)
     return record
 
 
@@ -192,11 +230,11 @@ def sweep_prng(record: torch.Tensor, start: int, limit: int, family: str, varian
     if record.device.type == "cpu":
         return sweep_prng_plain(record, start, limit, family, variant, big_endian, compare)
     _prng_check(family, variant, compare)
-    targets = compare.packed
     PRNG_KERNEL.launch(record.device, start >> 32, start & MASK32, limit,
                        FAMILIES.index(family), variant, int(big_endian),
                        MODES.index(compare.mode), compare.n_targets, int(compare.track),
-                       targets.ctypes.data, record.data_ptr())
+                       compare.target0.ctypes.data, _targets_ptr(compare, record.device),
+                       record.data_ptr())
     return record
 
 
@@ -215,13 +253,13 @@ def sweep_chain_plain(record: torch.Tensor, start: int, limit: int, variant: str
     _chain_check(variant, depth, compare)
     seeds = ((start & MASK32) + torch.arange(limit, dtype=torch.int64,
                                              device=record.device)) & MASK32
-    cascade = compare.mode == "cascade"
-    keys = sha256_chain.chain([seeds], torch.full_like(seeds, 4), variant,
-                              compare.n_targets if cascade else depth)
-    if cascade:
-        oks = [mask_ok(k, bits, t) for k, (bits, t) in zip(keys, compare.targets)]
-        _fill(record, functools.reduce(torch.logical_and, oks))
+    if compare.mode == "cascade":
+        def keys_of(idx, n):
+            s = seeds if idx is None else seeds[idx]
+            return sha256_chain.chain([s], torch.full_like(s, 4), variant, n)
+        _fill(record, _cascade_ok(keys_of, compare.targets)[0])
         return record
+    keys = sha256_chain.chain([seeds], torch.full_like(seeds, 4), variant, depth)
     okm = torch.ones((limit, depth), dtype=torch.bool, device=record.device)
     for d, k in enumerate(keys):
         if compare.mode == "exact":
@@ -246,8 +284,8 @@ def sweep_chain(record: torch.Tensor, start: int, limit: int, variant: str,
     if record.device.type == "cpu":
         return sweep_chain_plain(record, start, limit, variant, depth, compare)
     _chain_check(variant, depth, compare)
-    targets = compare.packed
     CHAIN_KERNEL.launch(record.device, start & MASK32, limit, CHAIN_VARIANTS.index(variant),
                         depth, MODES.index(compare.mode), compare.n_targets,
-                        targets.ctypes.data, record.data_ptr())
+                        compare.target0.ctypes.data, _targets_ptr(compare, record.device),
+                        record.data_ptr())
     return record

@@ -61,8 +61,8 @@ __device__ __forceinline__ void chain_key(uint32_t seed, int v, uint32_t d, uint
 
 __global__ void __launch_bounds__(256)
 sweep_chain_kernel(uint32_t start_lo, long long limit, int variant, int depth, int mode,
-                   int n_targets, const __grid_constant__ Targets t,
-                   unsigned long long* __restrict__ rec) {
+                   int n_targets, const __grid_constant__ Target0 t0,
+                   const uint32_t* __restrict__ targets, unsigned long long* __restrict__ rec) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     bool hit = false;
     unsigned long long idx = 0;
@@ -70,16 +70,17 @@ sweep_chain_kernel(uint32_t start_lo, long long limit, int variant, int depth, i
         const uint32_t seed = start_lo + (uint32_t)i;
         uint32_t key[8];
         if (mode == kCascade) {
-            hit = true;
-            for (int j = 0; hit && j < n_targets; j++) {
+            chain_key(seed, variant, 0u, key);
+            hit = mask_eq(key, t0.w);
+            for (int j = 1; hit && j < n_targets; j++) {
                 chain_key(seed, variant, (uint32_t)j, key);
-                hit = mask_eq(key, t.w + 6 * j);
+                hit = mask_eq_at(key, targets, j);
             }
             idx = (unsigned long long)i;
         } else {
             for (int d = 0; d < depth; d++) {
                 chain_key(seed, variant, (uint32_t)d, key);
-                if (mode == kExact ? exact_eq(key, t.w) : mask_eq(key, t.w)) {
+                if (mode == kExact ? exact_eq(key, t0.w) : mask_eq(key, t0.w)) {
                     hit = true;
                     idx = (unsigned long long)i * depth + d;
                     break;
@@ -94,23 +95,25 @@ sweep_chain_kernel(uint32_t start_lo, long long limit, int variant, int depth, i
 
 // variant: 0 iterated, 1 indexed:be, 2 indexed:le, 3 counter; depth below
 // 10^8 (exact and mask); mode: 0 exact, 1 mask, 2 cascade over n_targets
-// positions; targets: a host array of 6 x 28 words (sweep.cuh); rec: 2
-// device u64.  The batch's lanes are 0..limit-1, limit at most 2^32.
+// positions; target0: a host array of 8 words (sweep.cuh); targets: a
+// device array of 6 words a target, all n_targets of them (mask and
+// cascade); rec: 2 device u64.  The batch's lanes are 0..limit-1, limit at
+// most 2^32.
 extern "C" int vk_sweep_chain(uint32_t start_lo, long long limit, int variant, int depth,
-                              int mode, int n_targets, const uint32_t* targets,
-                              unsigned long long* rec, void* stream) {
+                              int mode, int n_targets, const uint32_t* target0,
+                              const uint32_t* targets, unsigned long long* rec, void* stream) {
     if (variant < kIterated || variant > kCounter || depth < 1 || depth >= 100000000 ||
-        mode < kExact || mode > kCascade || n_targets < 1 || n_targets > kMaxTargets ||
-        limit < 0 || limit > 0x100000000ll)
+        mode < kExact || mode > kCascade || n_targets < 1 ||
+        (mode != kCascade && n_targets != 1) || limit < 0 || limit > 0x100000000ll ||
+        (mode != kExact && targets == nullptr))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     int status = reset_record(rec, s);
     if (status != 0 || limit == 0) return status;
-    Targets t;
-    for (int k = 0; k < 6 * kMaxTargets; k++) t.w[k] = targets[k];
     const int threads = 256;
     const long long blocks = (limit + threads - 1) / threads;
     sweep_chain_kernel<<<(unsigned)blocks, threads, 0, s>>>(start_lo, limit, variant, depth,
-                                                            mode, n_targets, t, rec);
+                                                            mode, n_targets,
+                                                            load_target0(target0), targets, rec);
     return (int)cudaGetLastError();
 }

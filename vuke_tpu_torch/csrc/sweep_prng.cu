@@ -16,6 +16,19 @@
 // milksad and the LCGs read the low seed word alone.  The keys are the raw
 // keystream words: no reduction mod n (K1's normalize epilogue is off).
 //
+// A cascade runs for any number of targets, as the JAX package's does.
+// MT19937 keys 0..27 (outputs up to 223) and MT19937-64 keys 0..38 (outputs
+// up to 155) lie inside the init block; a lane that passes all of those
+// targets goes on in a separate, never-inlined function that builds the
+// whole state and twists it for real (`mt19937_far`, `mt64_far`: the
+// generator as rand_mt runs it, so outputs past the block equal
+// vuke_tpu/cores/mt19937.py's extension s[k] = s[k-227] ^ twist(s[k-624],
+// s[k-623]) and its 64-bit twin).  Only a lane that already passed 28 (39)
+// targets calls it, and only the kernel's second instantiation (kFar, which
+// the host picks for such cascades alone) holds the call: every other
+// launch runs the code and the registers it ran before (the call's ABI
+// costs 4 registers).
+//
 // Output: the batch record (sweep.cuh): the least lane index with a hit,
 // which is the JAX step's argmax of the flat `ok`, and, with `track`, the
 // count of lanes that pass target 0 (the JAX step's first_filter_hits).
@@ -42,27 +55,104 @@ using namespace vk::sweep;
 
 enum Family { kMilksad = 0, kMt64 = 1, kLcg = 2, kXorshift = 3 };
 
-// The lane's verdict: `next(key)` yields the stream's keys in turn.
-// `first` is set to whether key 0 passes target 0 (mask and cascade).
+// keys of a stream that the init recurrence alone gives (prng.cuh)
+constexpr int kMtInitKeys = 28, kMt64InitKeys = 39;
+
+// The lane's verdict on targets 0..n_targets-1: `next(key)` yields the
+// stream's keys in turn.  `first` is set to whether key 0 passes target 0
+// (mask and cascade).
 template <class Next>
-__device__ __forceinline__ bool lane_hit(Next next, int mode, int n_targets, const Targets& t,
-                                         bool& first) {
+__device__ __forceinline__ bool lane_hit(Next next, int mode, int n_targets, const Target0& t0,
+                                         const uint32_t* __restrict__ targets, bool& first) {
     uint32_t key[8];
     next(key);
-    if (mode == kExact) return exact_eq(key, t.w);
-    bool ok = mask_eq(key, t.w);
+    if (mode == kExact) return exact_eq(key, t0.w);
+    bool ok = mask_eq(key, t0.w);
     first = ok;
     for (int j = 1; ok && j < n_targets; j++) {
         next(key);
-        ok = mask_eq(key, t.w + 6 * j);
+        ok = mask_eq_at(key, targets, j);
     }
     return ok;
 }
 
+__device__ __forceinline__ uint32_t mt_temper(uint32_t x) {
+    x ^= x >> 11;
+    x ^= (x << 7) & 0x9D2C5680u;
+    x ^= (x << 15) & 0xEFC60000u;
+    return x ^ (x >> 18);
+}
+
+// Keys j0..n-1 of the MT19937 stream of `seed` against targets j0..n-1,
+// from the whole 624-word state, twisted in place as rand_mt twists it:
+// output i is the tempered word i % 624 after i / 624 + 1 twists.
+__device__ __noinline__ bool mt19937_far(uint32_t seed, int j0, int n,
+                                         const uint32_t* __restrict__ targets) {
+    uint32_t mt[624];
+    mt[0] = seed;
+    for (uint32_t k = 1; k < 624; k++) mt[k] = 1812433253u * (mt[k - 1] ^ (mt[k - 1] >> 30)) + k;
+    uint32_t twists = 0;
+    for (int j = j0; j < n; j++) {
+        uint32_t key[8];
+        for (int q = 0; q < 8; q++) {
+            const uint32_t i = 8u * (uint32_t)j + (uint32_t)q;
+            while (twists <= i / 624u) {
+                for (int k = 0; k < 624; k++) {
+                    const uint32_t y =
+                        (mt[k] & 0x80000000u) | (mt[k + 1 < 624 ? k + 1 : 0] & 0x7FFFFFFFu);
+                    mt[k] = mt[k + 397 < 624 ? k + 397 : k - 227] ^ (y >> 1) ^
+                            ((y & 1u) ? 0x9908B0DFu : 0u);
+                }
+                twists++;
+            }
+            key[q] = bswap32(mt_temper(mt[i % 624u]));
+        }
+        if (!mask_eq_at(key, targets, j)) return false;
+    }
+    return true;
+}
+
+// The same for MT19937-64: keys j0..n-1, 4 outputs each, from the whole
+// 312-word state twisted in place.
+__device__ __noinline__ bool mt64_far(uint64_t seed, int j0, int n,
+                                      const uint32_t* __restrict__ targets) {
+    constexpr uint64_t kUpper = 0xFFFFFFFF80000000ull, kLower = 0x7FFFFFFFull;
+    uint64_t mt[312];
+    mt[0] = seed;
+    for (int k = 1; k < 312; k++)
+        mt[k] = 6364136223846793005ull * (mt[k - 1] ^ (mt[k - 1] >> 62)) + (uint64_t)k;
+    uint32_t twists = 0;
+    for (int j = j0; j < n; j++) {
+        uint32_t key[8];
+        for (int q = 0; q < 4; q++) {
+            const uint32_t i = 4u * (uint32_t)j + (uint32_t)q;
+            while (twists <= i / 312u) {
+                for (int k = 0; k < 312; k++) {
+                    const uint64_t y = (mt[k] & kUpper) | (mt[k + 1 < 312 ? k + 1 : 0] & kLower);
+                    mt[k] = mt[k + 156 < 312 ? k + 156 : k - 156] ^ (y >> 1) ^
+                            ((y & 1) ? 0xB5026F5AA96619E9ull : 0ull);
+                }
+                twists++;
+            }
+            uint64_t x = mt[i % 312u];
+            x ^= (x >> 29) & 0x5555555555555555ull;
+            x ^= (x << 17) & 0x71D67FFFEDA60000ull;
+            x ^= (x << 37) & 0xFFF7EEE000000000ull;
+            x ^= x >> 43;
+            key[2 * q] = bswap32((uint32_t)x);
+            key[2 * q + 1] = bswap32((uint32_t)(x >> 32));
+        }
+        if (!mask_eq_at(key, targets, j)) return false;
+    }
+    return true;
+}
+
+template <bool kFar>
 __global__ void __launch_bounds__(256)
 sweep_prng_kernel(uint32_t start_hi, uint32_t start_lo, long long limit, int family,
                   int variant, int big_endian, int mode, int n_targets, int track,
-                  const __grid_constant__ Targets t, unsigned long long* __restrict__ rec) {
+                  const __grid_constant__ Target0 t0, const uint32_t* __restrict__ targets,
+                  unsigned long long* __restrict__ rec) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     bool hit = false, first = false;
     if (i < limit) {
@@ -72,25 +162,32 @@ sweep_prng_kernel(uint32_t start_hi, uint32_t start_lo, long long limit, int fam
         switch (family) {
             case kMilksad: {
                 uint32_t base = 0;
+                const int near = kFar && n_targets > kMtInitKeys ? kMtInitKeys : n_targets;
                 hit = lane_hit([&](uint32_t k[8]) { mt19937_key(lo, base, k); base += 8; },
-                               mode, n_targets, t, first);
+                               mode, near, t0, targets, first);
+                if (kFar && hit && near < n_targets)
+                    hit = mt19937_far(lo, near, n_targets, targets);
                 break;
             }
             case kMt64: {
                 const uint64_t seed = ((uint64_t)hi << 32) | lo;
                 uint32_t base = 0;
+                const int near = kFar && n_targets > kMt64InitKeys ? kMt64InitKeys : n_targets;
                 hit = lane_hit([&](uint32_t k[8]) { mt64_key(seed, base, k); base += 4; },
-                               mode, n_targets, t, first);
+                               mode, near, t0, targets, first);
+                if (kFar && hit && near < n_targets)
+                    hit = mt64_far(seed, near, n_targets, targets);
                 break;
             }
             case kLcg:
                 hit = lane_hit([&](uint32_t k[8]) { lcg_key(lo, variant, big_endian, k); },
-                               mode, n_targets, t, first);
+                               mode, n_targets, t0, targets, first);
                 break;
             default: {
                 Xorshift g;
                 g.init(hi, lo, variant);
-                hit = lane_hit([&](uint32_t k[8]) { g.next_key(k); }, mode, n_targets, t, first);
+                hit = lane_hit([&](uint32_t k[8]) { g.next_key(k); }, mode, n_targets, t0, targets,
+                               first);
             }
         }
     }
@@ -105,24 +202,33 @@ sweep_prng_kernel(uint32_t start_hi, uint32_t start_lo, long long limit, int fam
 
 // family: 0 milksad, 1 mt64, 2 lcg, 3 xorshift; variant: the LCG's or the
 // xorshift generator's; mode: 0 exact, 1 mask, 2 cascade over n_targets;
-// targets: a host array of 6 x 28 words (sweep.cuh); rec: 2 device u64.
-// The batch's lanes are 0..limit-1, limit at most 2^32.
+// target0: a host array of 8 words (sweep.cuh); targets: a device array of
+// 6 words a target, all n_targets of them (mask and cascade); rec: 2
+// device u64.  The batch's lanes are 0..limit-1, limit at most 2^32.
 extern "C" int vk_sweep_prng(uint32_t start_hi, uint32_t start_lo, long long limit, int family,
                              int variant, int big_endian, int mode, int n_targets, int track,
-                             const uint32_t* targets, unsigned long long* rec, void* stream) {
+                             const uint32_t* target0, const uint32_t* targets,
+                             unsigned long long* rec, void* stream) {
     if (family < kMilksad || family > kXorshift || variant < 0 || variant > 3 || mode < kExact ||
-        mode > kCascade || n_targets < 1 || n_targets > kMaxTargets || limit < 0 ||
-        limit > 0x100000000ll || (family == kLcg && mode == kCascade))
+        mode > kCascade || n_targets < 1 || (mode != kCascade && n_targets != 1) || limit < 0 ||
+        limit > 0x100000000ll || (family == kLcg && mode == kCascade) ||
+        (mode != kExact && targets == nullptr))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     int status = reset_record(rec, s);
     if (status != 0 || limit == 0) return status;
-    Targets t;
-    for (int k = 0; k < 6 * kMaxTargets; k++) t.w[k] = targets[k];
     const int threads = 256;
-    const long long blocks = (limit + threads - 1) / threads;
-    sweep_prng_kernel<<<(unsigned)blocks, threads, 0, s>>>(start_hi, start_lo, limit, family,
+    const unsigned blocks = (unsigned)((limit + threads - 1) / threads);
+    const bool far = (family == kMilksad && n_targets > kMtInitKeys) ||
+                     (family == kMt64 && n_targets > kMt64InitKeys);
+    const Target0 t0 = load_target0(target0);
+    if (far)
+        sweep_prng_kernel<true><<<blocks, threads, 0, s>>>(start_hi, start_lo, limit, family,
                                                            variant, big_endian, mode, n_targets,
-                                                           track, t, rec);
+                                                           track, t0, targets, rec);
+    else
+        sweep_prng_kernel<false><<<blocks, threads, 0, s>>>(start_hi, start_lo, limit, family,
+                                                            variant, big_endian, mode, n_targets,
+                                                            track, t0, targets, rec);
     return (int)cudaGetLastError();
 }

@@ -638,3 +638,105 @@ def sweep_chain(variant: str, mode: str, reach) -> Ops:
         sha256_block(t, SHA_IV, _seed4_block(variant, d))
         ops = ops + share * (t.ops + _compare_ops(mode))
     return ops
+
+
+# --- the wallet kernels: SHA-512 on 64-bit words as (hi, lo) pairs, each
+# word of a pair an int or None; the 64-bit logic, shifts and rotates are
+# two 32-bit ones, an add of m terms two carry chains of IADD3s ---
+
+def _rotr64(t: Trace, x, n: int):
+    """Two funnel shifts (a swap alone for 32)."""
+    hi, lo = x if n < 32 else (x[1], x[0])
+    n %= 32
+    if n == 0:
+        return hi, lo
+    return t.funnel(lo, hi, n), t.funnel(hi, lo, n)
+
+
+def _shr64(t: Trace, x, n: int):
+    """x >> n for n < 32: a shift and a funnel shift."""
+    return t.shr(x[0], n), t.funnel(x[0], x[1], n)
+
+
+def _lop64(t: Trace, fn, *xs):
+    """A bitwise function of up to three 64-bit words: a LOP3 a half."""
+    return (t.lop(fn, *(x[0] for x in xs)), t.lop(fn, *(x[1] for x in xs)))
+
+
+def _add64(t: Trace, *xs):
+    """A sum mod 2^64: the known terms fold into one; the low words' sum
+    carries into the high words', each half one IADD3 for each two terms
+    beyond the first."""
+    known = sum((x[0] << 32 | x[1]) for x in xs if None not in x) & ((1 << 64) - 1)
+    lanes = sum(None in x for x in xs)
+    if not lanes:
+        return known >> 32, known & M32
+    t.add_ += 2 * ((lanes + (known != 0)) // 2)
+    return None, None
+
+
+def sha512_block(t: Trace, state, block):
+    """One SHA-512 compression (cores/sha512.py::compress) of 16 (hi, lo)
+    words into 8."""
+    from ..cores.sha512 import K
+    a, b, c, d, e, f, g, h = state
+    w = list(block)
+    for i in range(80):
+        if i >= 16:
+            x, y = w[i - 15], w[i - 2]
+            s0 = _lop64(t, _xor3, _rotr64(t, x, 1), _rotr64(t, x, 8), _shr64(t, x, 7))
+            s1 = _lop64(t, _xor3, _rotr64(t, y, 19), _rotr64(t, y, 61), _shr64(t, y, 6))
+            w.append(_add64(t, w[i - 16], s0, w[i - 7], s1))
+        s1e = _lop64(t, _xor3, _rotr64(t, e, 14), _rotr64(t, e, 18), _rotr64(t, e, 41))
+        ch = _lop64(t, lambda e_, f_, g_: (e_ & f_) ^ (~e_ & g_), e, f, g)
+        t1 = _add64(t, h, s1e, ch, (K[i] >> 32, K[i] & M32), w[i])
+        s0a = _lop64(t, _xor3, _rotr64(t, a, 28), _rotr64(t, a, 34), _rotr64(t, a, 39))
+        maj = _lop64(t, lambda a_, b_, c_: (a_ & b_) ^ (a_ & c_) ^ (b_ & c_), a, b, c)
+        h, g, f, e = g, f, e, _add64(t, d, t1)
+        d, c, b, a = c, b, a, _add64(t, t1, s0a, maj)
+    return [_add64(t, x, s) for x, s in zip((a, b, c, d, e, f, g, h), state)]
+
+
+def pbkdf2_sha512(iterations: int, salt_block=None) -> Ops:
+    """W1 per lane (csrc/pbkdf2_sha512.cu): the key block XOR ipad and opad
+    (32 LOP3s each), the inner and outer states from the IV, U_1 from the
+    salt's known block and the outer state, then per further iteration two
+    compressions of a 64-byte message (its words 8..15 known) and T ^= U
+    (16 LOP3s)."""
+    from ..cores.sha512 import IV
+    iv = [(v >> 32, v & M32) for v in IV]
+    lane = [(None, None)] * 8
+    pad = [(0x80000000, 0)] + [(0, 0)] * 6 + [(0, 1536)]
+    salt = [(0, 0)] * 16 if salt_block is None else salt_block
+    setup, step = Trace(), Trace()
+    setup.alu += 64
+    sha512_block(setup, iv, [(None, None)] * 16)
+    sha512_block(setup, iv, [(None, None)] * 16)
+    sha512_block(setup, lane, salt)
+    sha512_block(setup, lane, lane + pad)
+    sha512_block(step, lane, lane + pad)
+    sha512_block(step, lane, lane + pad)
+    step.alu += 16
+    return setup.ops + (iterations - 1) * step.ops
+
+
+def electrum_stretch(length: int, rounds: int) -> Ops:
+    """W2 per lane (csrc/electrum_stretch.cu): ``rounds`` SHA-256s of
+    x || s, s ``length`` bytes: the seed's words (the terminator's byte
+    among them unless the length is a multiple of 4) are the lane's, the
+    padding known; a block of padding alone (length 32) is known whole."""
+    nb = (32 + length + 9 + 63) // 64
+    nw = (length + 3) // 4
+    tail = []
+    for j in range(16 * nb - 8):
+        if j < nw:
+            tail.append(None)
+        elif j == length // 4:
+            tail.append(0x80000000)
+        else:
+            tail.append((32 + length) * 8 if j == 16 * nb - 9 else 0)
+    t = Trace()
+    state = sha256_block(t, SHA_IV, [None] * 8 + tail[:8])
+    for b in range(1, nb):
+        state = sha256_block(t, state, tail[16 * b - 8:16 * b + 8])
+    return rounds * t.ops

@@ -267,7 +267,8 @@ class ScanProgram:
                 masks.append(self._seq.run(start, limit, self._match, s))
                 continue
             if keys is None:
-                keys, valid = nt.keygen(*seed_lattice(start, self.offsets))
+                # a host-only transform computes the lanes in range alone
+                keys, valid = nt.keygen(*seed_lattice(start, self.offsets), limit=limit)
                 in_range = self.offsets < limit
             if self.generate:
                 norm, rows = derive_addresses(keys[s], self.version, self.smul13)
@@ -563,13 +564,15 @@ class StringDriver:
         return unpack_mask(packed.to(torch.int64).cpu().numpy(), width)[:len(keys_flat)]
 
     def process_blob(self, data: bytes, label: str) -> ProcessStats:
-        """One file: every string transform sees its path (``label``); the
-        file counts as one input, by the caller (no port transform reads a
-        file's bytes)."""
+        """One file (``vuke_tpu/pipeline.py:605-650``): the transforms with
+        a ``blob_fn`` (bitimage) take its bytes, each key derived and
+        checked on the host; every other string transform sees its path
+        (``label``) once, through one ``process_batch``.  The file counts
+        as one input, by the caller."""
         stats = ProcessStats()
         if self.progress is not None:
             self.progress.advance(1)
-        specs = [s for s in self.specs if s.string is not None]
+        specs = [s for s in self.specs if s.string is not None and s.string.blob_fn is None]
         if specs:
             prog, self.progress = self.progress, None
             try:
@@ -577,6 +580,25 @@ class StringDriver:
             finally:
                 self.progress = prog
             stats.inputs_processed = 0
+        for spec in self.specs:
+            st = spec.string
+            if st is None or st.blob_fn is None:
+                continue
+            keys = st.blob_fn([(data, label)], self.device)
+            valid = st.valid_fn([label])
+            stats.keys_generated += int(valid.sum())
+            for s_i in range(keys.shape[1]):
+                if not valid[0, s_i]:
+                    continue
+                derived = self.deriver.derive(keys[0, s_i].astype(">u4").tobytes())
+                source = f"{label}{st.slots[s_i]}"
+                if self.pools is None:
+                    self.output.key(source, spec.name, derived)
+                    continue
+                info = self.pools.check(derived)
+                if info is not None:
+                    stats.matches_found += 1
+                    self.output.hit(source, spec.name, derived, info)
         return stats
 
     def process_batch(self, strings: Sequence[str],
@@ -608,8 +630,8 @@ class StringDriver:
                     info = self.pools.check(derived)
                     if info is not None:
                         stats.matches_found += 1
-                        self.output.hit(f"{strings[i]}{st.slots[s_i]}", spec.name, derived,
-                                        info)
+                        self.output.hit(f"{st.label(strings[i])}{st.slots[s_i]}", spec.name,
+                                        derived, info)
         return stats
 
     def _emit_generate(self, spec: TransformSpec, strings, flat: np.ndarray, valid):
@@ -620,5 +642,5 @@ class StringDriver:
         idx = np.nonzero(valid.reshape(-1))[0]
         st = spec.string
         write_keys(self.output, self.deriver, spec.name,
-                   [f"{strings[i // S]}{st.slots[i % S]}" for i in idx],
+                   [f"{st.label(strings[i // S])}{st.slots[i % S]}" for i in idx],
                    norm.view(np.uint32)[idx], p2pkh.addresses(rows[idx]))

@@ -3,10 +3,12 @@
 The port's copy of ``vuke_tpu/sources.py``.  Numeric sources (range,
 timestamps) are seed lattices driven by ``pipeline.ForwardDriver``;
 string sources stream host batches of ``STRING_BATCH`` through
-``pipeline.StringDriver``, which fixes their output order.  The JAX
-package also feeds string-only transforms (the wallet ones) the decimal
-strings of a numeric range; no port transform is string-only, so a
-numeric source runs the numeric driver alone.
+``pipeline.StringDriver``, which fixes their output order.  A numeric
+source also feeds the string-only transforms (electrum, multibit) the
+decimal string of each seed, after the numeric transforms' pass, as
+``vuke_tpu/sources.py:27-60`` does: the electrum-over-timestamps attack.
+``FilesSource`` gives each file's bytes to the transforms that read them
+(bitimage).
 """
 
 from __future__ import annotations
@@ -22,6 +24,39 @@ from .pipeline import ProcessStats
 STRING_BATCH = 1000
 
 
+def _string_only_specs(string_driver) -> list:
+    """The transforms only the string path reaches, no blob reader."""
+    if string_driver is None:
+        return []
+    return [s for s in string_driver.specs
+            if s.numeric is None and s.string is not None and s.string.blob_fn is None]
+
+
+def _strings_over_range(string_driver, start: int, end: int, counted: bool) -> ProcessStats:
+    """The decimal strings of [start, end] through the string-only
+    transforms, ``STRING_BATCH`` at a time; inputs (and progress) count
+    only when no numeric transform has counted them (``counted``)."""
+    stats = ProcessStats()
+    specs = _string_only_specs(string_driver)
+    if not specs:
+        return stats
+    prog = string_driver.progress
+    if counted:
+        string_driver.progress = None
+    try:
+        pos = start
+        while pos <= end:
+            hi = min(pos + STRING_BATCH - 1, end)
+            st = string_driver.process_batch([str(v) for v in range(pos, hi + 1)], specs=specs)
+            if counted:
+                st.inputs_processed = 0
+            stats.merge(st)
+            pos = hi + 1
+    finally:
+        string_driver.progress = prog
+    return stats
+
+
 @dataclass
 class RangeSource:
     """The inclusive u64 range [start, end]."""
@@ -29,7 +64,10 @@ class RangeSource:
     end: int
 
     def process(self, numeric_driver, string_driver=None) -> ProcessStats:
-        return numeric_driver.run_range(self.start, self.end)
+        stats = numeric_driver.run_range(self.start, self.end)
+        stats.merge(_strings_over_range(string_driver, self.start, self.end,
+                                        bool(numeric_driver.specs)))
+        return stats
 
 
 @dataclass
@@ -51,10 +89,13 @@ class TimestampSource:
         return cls(start, int(end_day.timestamp()), microseconds)
 
     def process(self, numeric_driver, string_driver=None) -> ProcessStats:
+        counted = bool(numeric_driver.specs)
         stats = numeric_driver.run_range(self.start, self.end)
+        stats.merge(_strings_over_range(string_driver, self.start, self.end, counted))
         if self.microseconds:
-            stats.merge(numeric_driver.run_range(self.start * 1000,
-                                                 (self.end + 1) * 1000 - 1))
+            lo, hi = self.start * 1000, (self.end + 1) * 1000 - 1
+            stats.merge(numeric_driver.run_range(lo, hi))
+            stats.merge(_strings_over_range(string_driver, lo, hi, counted))
         return stats
 
 
@@ -100,7 +141,8 @@ class StdinSource:
 @dataclass
 class FilesSource:
     """A file, or the files of a directory (recursive: its whole tree),
-    sorted, symlinks skipped; each is one input, its path the label."""
+    sorted, symlinks skipped; each is one input, its path the label and
+    its bytes the blob (bitimage)."""
     path: str
     recursive: bool = False
 

@@ -1,4 +1,5 @@
-"""Transforms: the registry (``registry.parse_transform``) and the numeric
-transforms it hands out (``numeric.py``)."""
+"""Transforms: the registry (``registry.parse_transform``) and the numeric,
+string and wallet transforms it hands out (``numeric.py``, ``strings.py``,
+``wallets.py``)."""
 
-from .registry import NotPortedError, TransformSpec, parse_transform  # noqa: F401
+from .registry import TransformSpec, parse_transform  # noqa: F401

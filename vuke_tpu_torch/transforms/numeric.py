@@ -18,6 +18,11 @@ confirm and the tests do.
 ``sequential_slot`` marks the slot whose key IS the seed (key of seed + 1
 = key of seed + 1), so a contiguous range can take the sequential scan's
 one-point-addition-per-key path (``ecc/incremental.py``).
+
+A host-only transform (armory's numeric path: EC multiplications a key)
+has ``host`` in place of ``words`` and ``valid``: its keys are computed on
+the host from the seeds, then sent to the device for the derive and the
+match, as ``vuke_tpu/pipeline.py:328-333`` runs them.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .._device import i64
@@ -40,18 +46,38 @@ class NumericTransform:
     (S, N) bool."""
     name: str
     slots: tuple
-    words: Callable
-    valid: Callable
+    words: Optional[Callable] = None
+    valid: Optional[Callable] = None
     sequential_slot: Optional[int] = None
+    host: Optional[Callable] = None
 
     @property
     def n_slots(self) -> int:
         return len(self.slots)
 
-    def keygen(self, hi: torch.Tensor, lo: torch.Tensor, plain: bool = False):
+    @property
+    def host_only(self) -> bool:
+        return self.host is not None
+
+    def keygen(self, hi: torch.Tensor, lo: torch.Tensor, plain: bool = False,
+               limit: Optional[int] = None):
         """(N,) uint32 seed words -> ((S, 8, N) uint32 BE key words, (S, N)
-        bool validity); ``plain`` runs the plain version on any device."""
-        return self.words(hi, lo, plain), self.valid(hi, lo)
+        bool validity); ``plain`` runs the plain version on any device.  A
+        host-only transform computes the first ``limit`` lanes (all when
+        None) on the host, the rest invalid, and sends them to the seeds'
+        device."""
+        if self.host is None:
+            return self.words(hi, lo, plain), self.valid(hi, lo)
+        n = lo.shape[0]
+        m = n if limit is None else min(limit, n)
+        seeds = [(h << 32) | l for h, l in zip(i64(hi[:m]).tolist(), i64(lo[:m]).tolist())]
+        keys_np, valid_np = self.host(seeds)                   # (m, S, 8), (m, S)
+        keys = np.zeros((self.n_slots, 8, n), dtype=np.uint32)
+        valid = np.zeros((self.n_slots, n), dtype=bool)
+        keys[:, :, :m] = keys_np.transpose(1, 2, 0)
+        valid[:, :m] = valid_np.T
+        words = torch.from_numpy(keys.view(np.int32)).view(torch.uint32)
+        return words.to(lo.device), torch.from_numpy(valid).to(lo.device)
 
 
 def _all_valid(slots: int):

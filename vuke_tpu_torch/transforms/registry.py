@@ -6,8 +6,9 @@ for word.  A spec bundles the display name that a hit prints
 (``Transform: ...``), the numeric transform (a seed lattice) and, where
 the JAX package gives one, the string transform (wordlist, stdin and file
 sources, ``single``): direct, direct:str, sha256, double_sha256, md5 and
-sha256_chain.  The wallet transforms (armory, multibit, electrum[:change],
-bitimage) raise ``NotPortedError``.
+sha256_chain; the wallet transforms (armory, multibit, electrum[:change],
+bitimage) are ``wallets.py``'s, as ``vuke_tpu/transforms/registry.py:69-80``
+builds them.
 """
 
 from __future__ import annotations
@@ -35,14 +36,10 @@ _CHAIN_NAMES = {
 }
 
 
-class NotPortedError(NotImplementedError):
-    """A transform the JAX package runs and the port does not yet."""
-
-
 @dataclass(frozen=True)
 class TransformSpec:
-    name: str                            # display name (Transform::name)
-    numeric: numeric.NumericTransform    # device lattice path
+    name: str                                      # display name (Transform::name)
+    numeric: Optional[numeric.NumericTransform]    # device lattice path
     string: Optional[strings.StringTransform] = None   # string sources
 
 
@@ -65,9 +62,18 @@ def parse_transform(s: str) -> TransformSpec:
         return TransformSpec("milksad", numeric.MILKSAD)
     if sl == "mt64":
         return TransformSpec("mt64", numeric.MT64)
-    if (sl in ("armory", "multibit", "electrum", "electrum:change", "bitimage")
-            or sl.startswith("bitimage:")):
-        raise NotPortedError(f"transform {s!r} is not ported yet")
+    if sl == "armory":
+        from . import wallets
+        return wallets.armory_spec()
+    if sl == "multibit":
+        from . import wallets
+        return wallets.multibit_spec()
+    if sl in ("electrum", "electrum:change"):
+        from . import wallets
+        return wallets.electrum_spec(for_change=sl.endswith(":change"))
+    if sl == "bitimage" or sl.startswith("bitimage:"):
+        from . import wallets
+        return wallets.bitimage_spec()
     if sl == "lcg" or sl.startswith("lcg:"):
         variant, endian = _parse_lcg(sl)
         vs = [variant] if variant else None

@@ -29,11 +29,20 @@ from ..cores import sha256_chain as chain_core
 @dataclass(frozen=True)
 class StringTransform:
     """``fn(strings, device=None)``: (N, S, 8) uint32 key words;
-    ``valid_fn(strings)``: (N, S) bool, or None when every key is valid."""
+    ``valid_fn(strings)``: (N, S) bool, or None when every key is valid;
+    ``label_fn(string)``: the source label a hit or line prints for the
+    string (None: the string itself); ``blob_fn(blobs, device=None)``: the
+    keys of ``(data, label)`` file blobs (bitimage), its validity in
+    ``valid_fn``'s place."""
     name: str
     slots: tuple
     fn: Callable
     valid_fn: Optional[Callable] = None
+    label_fn: Optional[Callable] = None
+    blob_fn: Optional[Callable] = None
+
+    def label(self, s: str) -> str:
+        return s if self.label_fn is None else self.label_fn(s)
 
 
 def host_digest_max() -> int:
