@@ -138,7 +138,24 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    ``bench_wallet("multibit")`` on 1024 beside the hashlib host path;
    9e. planted armory (range), multibit (wordlist) and bitimage (files)
    scans, and ``generate --transform electrum`` against the host
-   ``KeyDeriver``.
+   ``KeyDeriver``;
+10. the storage tail, with E1 (``csrc/records.cu``, a record's string
+   columns: decimal, WIFs, P2PKH, P2WPKH, statistics):
+   10a. E1 against ``records_plain`` on the card at 2^19 lanes on bitcoin,
+   testnet, signet and regtest, lane-exact, the edge keys (1, 2, 9,
+   10^9 - 1, 10^9, 2^32, 2^255, n - 1, 1..31 leading zero bytes) and
+   digests with leading zero bytes among them, the edge keys also against
+   ``KeyDeriver``; 256 lanes a network of ``pipeline.derive_records``
+   against ``KeyDeriver.derive``; E1's time, bound and share; ``generate
+   -v`` over 4096 seeds against the host (E1 once, D2 never);
+   10b (only where pyarrow is installed, decided before it starts):
+   ``generate --storage`` over 2^20 sha256 seeds, then sha256 and milksad
+   with ``--chunk-records 300000``: one record a line, the chunks and
+   their sizes as the ``Storage:`` lines name them, 256 sampled records
+   equal to the host ``KeyDeriver``'s (every column but ``timestamp``);
+   ``scan --storage`` with a planted key: one record, ``matched_target``
+   set; ``query`` on a 65,536-record run; E1's launches on every run; then
+   ``benchmark.bench_storage``'s records/s and a superbatch's split.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
@@ -168,8 +185,8 @@ from vuke_tpu_torch.benchmark import (bench_derive, bench_sequential, device_ms,
 from vuke_tpu_torch.benchmark import bench_generate, bench_scan, bench_strings
 from vuke_tpu_torch.analyze.key_parser import apply_mask
 from vuke_tpu_torch.analyze.sweeps import CARD_SWEEP_BATCH
-from vuke_tpu_torch.cores import (digest, hash160, keygen, lcg, mt19937, p2pkh, sha256_chain,
-                                  sweep)
+from vuke_tpu_torch.cores import (digest, hash160, keygen, lcg, mt19937, p2pkh, records,
+                                  sha256_chain, sweep)
 from vuke_tpu_torch.derive import KeyDeriver
 from vuke_tpu_torch.ecc import field as F
 from vuke_tpu_torch.ecc import incremental as inc
@@ -189,7 +206,9 @@ KEYGEN = {"keygen_hash": keygen.HASH_KERNEL, "keygen_prng": keygen.PRNG_KERNEL,
 STRING_KERNELS = {"digest": digest.KERNEL, "p2pkh": p2pkh.KERNEL}
 SWEEP_KERNELS = {"sweep_prng": sweep.PRNG_KERNEL, "sweep_chain": sweep.CHAIN_KERNEL}
 WALLET_KERNELS = {"pbkdf2_sha512": pbkdf2_device.KERNEL, "electrum_stretch": electrum.KERNEL}
-ALL_KERNELS = KERNELS | KEYGEN | STRING_KERNELS | SWEEP_KERNELS | WALLET_KERNELS
+RECORD_KERNELS = {"records": records.KERNEL}
+ALL_KERNELS = (KERNELS | KEYGEN | STRING_KERNELS | SWEEP_KERNELS | WALLET_KERNELS
+               | RECORD_KERNELS)
 N_STRINGS = 1 << 16
 GEN_SEEDS = 70_000
 WORDS = 1 << 20
@@ -206,6 +225,10 @@ W2_LENGTHS = (1, 10, 23, 24, 32, 87, 88, 150)
 ELECTRUM_SEEDS = 1 << 16
 MNEMONICS = 4096
 CASCADE = 40
+# phase 10: E1 on the generate path's batch; generate --storage over
+# STORAGE_SEEDS seeds; query on a run of QUERY_RECORDS records
+STORAGE_SEEDS = 1 << 20
+QUERY_RECORDS = 1 << 16
 ELECTRUM_SEED = "acb740e454c3134901d7c8f16497cc1c"
 ELECTRUM_MPK = ("e9d4b7866dd1e91c862aebf62a49548c7dbf7bcc6e4b7b8c9da820c7737968df"
                 "9c09d5a3e271dc814a29981f81b3faaf2737b551ef5dcc6189cf0f8252c442b3")
@@ -1401,13 +1424,14 @@ def p2pkh_digests(rng, n: int) -> torch.Tensor:
     return torch.from_numpy(h)
 
 
-def launch_device_ms(fn, kern, iters: int = 20) -> float:
+def launch_device_ms(fn, kern, iters: int = 20, missing_ok: bool = False):
     """Device milliseconds of one launch of ``kern`` under
     ``torch.profiler``, ``fn`` launching it once a call: its recorded time
     over the launches recorded.  CUPTI drops one launch of a window now and
     then, and now and then most of one (as ``benchmark._profiled`` sees):
     a window that records fewer than half the launches runs again, three
-    times at most, and then this raises."""
+    times at most, and then this raises, or with ``missing_ok`` returns
+    None."""
     from torch.profiler import ProfilerActivity, profile
     from vuke_tpu_torch.benchmark import _device_events
 
@@ -1422,6 +1446,8 @@ def launch_device_ms(fn, kern, iters: int = 20) -> float:
         ms, n = _device_events(prof, 1).get(kern.entry, (0.0, 0))
         if n >= iters // 2:
             return ms / n
+    if missing_ok:
+        return None
     raise RuntimeError(f"torch.profiler recorded {n} of {iters} launches of {kern.name}")
 
 
@@ -2209,8 +2235,13 @@ def phase_w1(dev, rng, card: str, int_ops_per_s: float):
     keys, sb, checked = w1_full(dev, rng)
     n = W1_FULL
     ms = time_cuda(lambda: pbkdf2_device.pbkdf2_sha512(keys, sb), iters=3, warmup=1)
+    # CUPTI now and then records none of these ~63 ms launches (as it
+    # records none of W2's): the share is then taken against the events
     dev_ms = launch_device_ms(lambda: pbkdf2_device.pbkdf2_sha512(keys, sb),
-                              pbkdf2_device.KERNEL, iters=3)
+                              pbkdf2_device.KERNEL, iters=3, missing_ok=True)
+    how = "device (profiler)"
+    if dev_ms is None:
+        dev_ms, how = ms, "by CUDA events (the profiler recorded no launch)"
     ops = work.pbkdf2_sha512(2048)
     bound_ms, _, limit = bound_of(192 * n, ops, n, int_ops_per_s)
     k7 = keys[:, :W1_LANES].contiguous()
@@ -2225,7 +2256,7 @@ def phase_w1(dev, rng, card: str, int_ops_per_s: float):
         f"(max abs err 0); {n} candidates at 2048 iterations, {checked} lanes == "
         f"hashlib.pbkdf2_hmac and the BIP39 Trezor vector; {time.perf_counter() - t0:.1f} s")
     say(f"[9a W1 time] {n} candidates x 2048 iterations: kernel {ms:.3f} ms (CUDA events), "
-        f"{dev_ms:.3f} ms device (profiler), {n / dev_ms * 1e3:.4g} PBKDF2/s; bound "
+        f"{dev_ms:.3f} ms {how}, {n / dev_ms * 1e3:.4g} PBKDF2/s; bound "
         f"{bound_ms:.3f} ms by {limit} ({100 * bound_ms / dev_ms:.1f}% of the device time; a "
         f"lane needs {ops.alu:.4g} ALU, {ops.add:.4g} adds); at 7 iterations on {W1_LANES}: "
         f"kernel {ms7:.4f} ms, plain {plain7:.1f} ms, bound {bound7:.4f} ms [{card}]")
@@ -2465,6 +2496,333 @@ def phase_long_cascade(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the storage tail, with E1 (csrc/records.cu)
+# ---------------------------------------------------------------------------
+
+def record_edge_keys(rng) -> list:
+    """Normalized keys at E1's edges: 1, 2, 9, 10^9 - 1, 10^9, 2^32, 2^255,
+    n - 1, and keys with 1 to 31 leading zero bytes."""
+    keys = [1, 2, 9, 10 ** 9 - 1, 10 ** 9, 1 << 32, 1 << 255, N - 1]
+    return keys + [int.from_bytes(b"\0" * z + b"\x01" + rng.bytes(31 - z), "big")
+                   for z in range(1, 32)]
+
+
+def record_inputs(rng, n: int):
+    """(8, n) key words (random below 2^255, the edge keys first) and two
+    (5, n) digests (random; rows 100..103 with 20, 8, 2 and 1 leading zero
+    bytes, so that P2PKH addresses start with several '1's), on the CPU."""
+    keys = record_edge_keys(rng)
+    kw = rng.integers(0, 1 << 32, (8, n), dtype=np.uint32)
+    kw[0] &= 0x7FFFFFFF
+    kw[:, :len(keys)] = words_be(keys).numpy()
+    h = rng.integers(0, 1 << 32, (2, 5, n), dtype=np.uint32)
+    for row, zero_bytes in zip(range(100, 104), (20, 8, 2, 1)):
+        b = bytearray(rng.bytes(20))
+        b[:zero_bytes] = bytes(zero_bytes)
+        h[:, :, row] = np.frombuffer(bytes(b), dtype="<u4")
+    as_u32 = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).view(torch.uint32)
+    return as_u32(kw), as_u32(h[0]), as_u32(h[1]), len(keys)
+
+
+def record_row_strings(rows: np.ndarray, j: int) -> dict:
+    out = {name: bytes(rows[j, off:off + w]).rstrip(b"\0").decode()
+           for name, off, w in records.FIELDS}
+    st = rows[j, records.STATS:records.STATS + 5].astype(int)
+    out["stats"] = (st[0] | st[1] << 8, st[2] | st[3] << 8, st[4])
+    return out
+
+
+def derived_strings(d) -> dict:
+    return {"private_key_decimal": d.private_key_decimal, "wif_compressed": d.wif_compressed,
+            "wif_uncompressed": d.wif_uncompressed,
+            "address_p2pkh_compressed": d.p2pkh_compressed,
+            "address_p2pkh_uncompressed": d.p2pkh_uncompressed, "address_p2wpkh": d.p2wpkh,
+            "stats": (d.bit_length, d.hamming_weight, d.leading_zeros)}
+
+
+def phase_records(dev, rng, card: str, int_ops_per_s: float):
+    """10a: E1 against ``records_plain`` on the card at the generate path's
+    batch on every network, lane-exact, the edge keys and digests among
+    the lanes; 256 lanes of the derive path (``pipeline.derive_records``)
+    against ``KeyDeriver.derive`` on each network; E1's time, bound and
+    share; then ``generate -v`` (E1 on the path without pyarrow) against
+    the host."""
+    k, hc, hu, n_edge = record_inputs(rng, BATCH)
+    kd, hcd, hud = k.to(dev), hc.to(dev), hu.to(dev)
+    plain_ms = None
+    for net in encode.NETWORKS.values():
+        got = launched_once(records.KERNEL, lambda: records.encode_records(kd, hcd, hud, net))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = records.records_plain(kd, hcd, hud, net)
+        torch.cuda.synchronize()
+        plain_ms = plain_ms or (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            bad = (got != want).any(dim=1).nonzero().flatten().tolist()
+            raise AssertionError(f"E1 {net.name}: {len(bad)} rows differ from records_plain: "
+                                 f"{bad[:8]}")
+        rows = got.cpu().numpy()
+        for j in range(n_edge):
+            key = lane_int_be(k, j).to_bytes(32, "big")
+            d = KeyDeriver(net).derive(key)
+            want_j = derived_strings(d)
+            got_j = record_row_strings(rows, j)
+            for name in ("private_key_decimal", "wif_compressed", "wif_uncompressed", "stats"):
+                if got_j[name] != want_j[name]:
+                    raise AssertionError(f"E1 {net.name} edge key {j} {name}: {got_j[name]} "
+                                         f"!= {want_j[name]}")
+        for j in range(100, 104):
+            hb = bytes(hc[:, j].numpy().astype("<u4").tobytes())
+            if record_row_strings(rows, j)["address_p2pkh_compressed"] != p2pkh_address(hb, net):
+                raise AssertionError(f"E1 {net.name} row {j}: P2PKH of a digest with leading "
+                                     f"zero bytes differs")
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (8, 4096), dtype=np.uint32)
+                             .view(np.int32)).view(torch.uint32).to(dev)
+    for net in encode.NETWORKS.values():
+        norm, x, y, rows = pipeline.derive_records(words, net)
+        host = lambda t: t.T.contiguous().view(torch.int32).cpu().numpy().view(np.uint32)
+        block = records.RecordBlock("t", [str(j) for j in range(4096)], host(norm), host(x),
+                                    host(y), rows.cpu().numpy())
+        lanes = rng.choice(4096, 256, replace=False).tolist()
+        derived = block.derived()
+        deriver = KeyDeriver(net)
+        bad = [j for j in lanes if derived[j] != deriver.derive(derived[j].raw)]
+        if bad:
+            raise AssertionError(f"E1 {net.name}: derive_records lanes {bad[:8]} differ from "
+                                 f"KeyDeriver.derive")
+    say(f"[10a E1 records] {BATCH} lanes (the edge keys 1, 2, 9, 10^9 - 1, 10^9, 2^32, 2^255, "
+        f"n - 1 and 1..31 leading zero bytes; digests with 20, 8, 2, 1 leading zero bytes) on "
+        f"bitcoin, testnet, signet, regtest: kernel == records_plain byte-exact on every row "
+        f"(max abs err 0), the edge keys' decimal, WIFs and statistics == KeyDeriver; 256 "
+        f"lanes a network of derive_records (K3 -> K4 -> K2 -> E1) == KeyDeriver.derive "
+        f"string for string; D2 after the move to base58.cuh: 7b (lane-exact) [{card}]")
+    ms = time_cuda(lambda: records.encode_records(kd, hcd, hud), iters=20, warmup=3)
+    dev_ms = launch_device_ms(lambda: records.encode_records(kd, hcd, hud), records.KERNEL)
+    ops = work.records()
+    nbytes = (32 + 20 + 20 + records.ROW) * BATCH
+    bound_ms, bound_by, limit = bound_of(nbytes, ops, BATCH, int_ops_per_s)
+    say(f"[10a E1 time] {BATCH} lanes: kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms device "
+        f"(profiler), plain {plain_ms:.1f} ms (torch ops on the card), bound {bound_ms:.4f} ms "
+        f"by {limit} ({100 * bound_ms / dev_ms:.1f}% of the device time; needs a lane "
+        f"{ops.mul:.0f} multiplies, {ops.alu:.0f} ALU, {ops.add:.0f} adds; {nbytes / BATCH:.0f} "
+        f"B) [{card}]")
+    start = 10 ** 9 + int(rng.integers(0, 1 << 20))
+    rc, text, log, launches, secs = run_cli(
+        ["generate", "-v", "--transform", "md5", "--network", "testnet", "range", "--start",
+         str(start), "--end", str(start + 4095)])
+    blocks = text.split("---\n")[1:]
+    if rc != 0 or len(blocks) != 4096:
+        raise AssertionError(f"generate -v: rc {rc}, {len(blocks)} blocks, stderr {log!r}")
+    check_launches("generate -v", launches, {"records": 1, "p2pkh": 0, "keygen_hash": 1})
+    deriver = KeyDeriver(encode.TESTNET)
+    for j in rng.choice(4096, 64, replace=False).tolist():
+        d = deriver.derive(host_hash_keys("md5", start + j)[0])
+        want = (f"source: {start + j}\ntransform: md5\nprivate_key: {d.private_key_hex}\n"
+                f"wif_compressed: {d.wif_compressed}\nwif_uncompressed: {d.wif_uncompressed}\n"
+                f"p2pkh_compressed: {d.p2pkh_compressed}\n"
+                f"p2pkh_uncompressed: {d.p2pkh_uncompressed}\np2wpkh: {d.p2wpkh}\n")
+        if blocks[j] != want:
+            raise AssertionError(f"generate -v block {j}: {blocks[j]!r} != {want!r}")
+    say(f"[10a generate -v] md5 over 4096 seeds on testnet: 4096 blocks, 64 sampled == host "
+        f"KeyDeriver; E1 once, D2 never; {secs:.2f} s [{card}]")
+    return 0, (ms, plain_ms, bound_ms, bound_by), launches
+
+
+def storage_lines(log: str, directory: str) -> list:
+    """The chunk paths of the ``Storage:`` lines on stderr, each checked
+    against its file's size, and the total."""
+    lines = log.splitlines()
+    i = next(j for j, line in enumerate(lines) if line.startswith("Storage: "))
+    n = int(lines[i].split()[1])
+    paths, total = [], 0
+    for line in lines[i + 1:i + 1 + n]:
+        path, size = line.strip().rsplit(" (", 1)
+        if size != f"{cli._format_bytes(os.path.getsize(path))})":
+            raise AssertionError(f"storage: {line!r} is not the size of {path}")
+        paths.append(path)
+        total += os.path.getsize(path)
+    if lines[i] != f"Storage: {n} files written ({cli._format_bytes(total)})":
+        raise AssertionError(f"storage: {lines[i]!r} is not the {n} files' total")
+    on_disk = sorted(str(p) for p in __import__("pathlib").Path(directory).rglob("*.parquet"))
+    if sorted(paths) != on_disk:
+        raise AssertionError(f"storage: stderr names {len(paths)} chunks, {len(on_disk)} on disk")
+    return paths
+
+
+def host_record(source: str, transform: str, key: bytes, matched=None) -> dict:
+    """The record the JAX package writes for ``key``, without ``timestamp``."""
+    d = KeyDeriver().derive(key)
+    return {"source": source, "transform": transform, "chain": "bitcoin",
+            "matched_target": matched, "private_key_raw": d.raw,
+            "private_key_hex": d.private_key_hex, "private_key_decimal": d.private_key_decimal,
+            "private_key_binary": d.private_key_binary, "private_key_bit_length": d.bit_length,
+            "private_key_hamming_weight": d.hamming_weight,
+            "private_key_leading_zeros": d.leading_zeros,
+            "pubkey_compressed": d.pubkey_compressed, "pubkey_uncompressed": d.pubkey_uncompressed,
+            "address_p2pkh_compressed": d.p2pkh_compressed,
+            "address_p2pkh_uncompressed": d.p2pkh_uncompressed, "address_p2wpkh": d.p2wpkh,
+            "wif_compressed": d.wif_compressed, "wif_uncompressed": d.wif_uncompressed}
+
+
+def pa_equal(table, column: str, value: str):
+    import pyarrow.compute as pc
+
+    return pc.equal(table[column], value)
+
+
+def read_records(paths: list):
+    """The chunks' records in order (each transform's chunks in order), each
+    file read alone (no Hive partition columns from its path)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    return pa.concat_tables([pq.ParquetFile(p).read() for p in paths])
+
+
+def phase_storage(dev, rng, card: str) -> list:
+    """10b: ``generate --storage`` over 2^20 sha256 seeds, then sha256 and
+    milksad with ``--chunk-records 300000``: one record a line, the chunks
+    on stderr, 256 sampled records == the host; ``scan --storage`` with a
+    planted key: one record, ``matched_target`` set; ``query`` on a
+    65,536-record run (the sqlite fallback loads every row); E1's launches
+    on every run; then ``bench_storage``'s split, into a directory holding
+    a file it must leave."""
+    from vuke_tpu_torch.benchmark import bench_storage
+    import shutil
+
+    base = kernels.BUILD_DIR / "smoke_storage"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    runs = []
+    start = 3_000_000_000 + int(rng.integers(0, 1 << 20))     # milksad takes u32 seeds
+    for tag, transforms, extra, want_e1 in (
+            ("sha256", ["sha256"], [], 2 * 3),
+            ("sha256+milksad", ["sha256", "milksad"], ["--chunk-records", "300000"], 2 * 4)):
+        d, lines_path = str(base / tag), str(base / f"{tag}.txt")
+        argv = ["generate", "-o", lines_path, "--storage", d, *extra]
+        for t in transforms:
+            argv += ["--transform", t]
+        end = start + STORAGE_SEEDS - 1
+        rc, text, log, launches, secs = run_cli(argv + ["range", "--start", str(start), "--end",
+                                                       str(end)])
+        n_keys = STORAGE_SEEDS * (3 + (len(transforms) > 1))
+        if rc != 0 or not log.startswith(f"Generating keys...\nDone. Inputs: "
+                                         f"{len(transforms) * STORAGE_SEEDS}, Keys: {n_keys}, "
+                                         f"Matches: 0\n\nStorage: "):
+            raise AssertionError(f"generate --storage {tag}: rc {rc}, stderr {log[:300]!r}")
+        check_launches(f"generate --storage {tag}", launches,
+                       {"records": want_e1, "p2pkh": 0, "hash160": want_e1})
+        paths = storage_lines(log, d)
+        with open(lines_path) as f:
+            lines = f.read().splitlines()
+        table = read_records(paths)
+        if table.num_rows != len(lines) or len(lines) != n_keys:
+            raise AssertionError(f"generate --storage {tag}: {table.num_rows} records, "
+                                 f"{len(lines)} lines, {n_keys} keys")
+        if len(transforms) > 1:
+            for t in transforms:
+                counts = [read_records([p]).num_rows for p in paths if f"transform={t}" in p]
+                if max(counts) > 300000 or sum(counts) != STORAGE_SEEDS * (3 if t == "sha256"
+                                                                           else 1):
+                    raise AssertionError(f"--chunk-records 300000: {t} chunks {counts}")
+        # each transform's records are its lines, in order
+        for t in transforms:
+            t_lines = [line for line in lines if line.split(",")[1] == t]
+            t_rows = table.filter(pa_equal(table, "transform", t)).drop_columns(["timestamp"])
+            for j in rng.choice(len(t_lines), 256 // len(transforms), replace=False).tolist():
+                source, name, key_hex, addr = t_lines[j].split(",")
+                seed = int(source)
+                keys = (host_hash_keys("sha256", seed) if t == "sha256"
+                        else [host_milksad_key(seed)])
+                if key_hex not in [KeyDeriver().derive(k).private_key_hex for k in keys]:
+                    raise AssertionError(f"generate --storage {tag}: line {t_lines[j]!r} is "
+                                         f"not a key of seed {seed}")
+                row = t_rows.slice(j, 1).to_pylist()[0]
+                if row != host_record(source, name, bytes.fromhex(key_hex)):
+                    raise AssertionError(f"generate --storage {tag}: record {j} of {t} "
+                                         f"differs from the host: {row}")
+                if addr != row["address_p2pkh_compressed"]:
+                    raise AssertionError(f"generate --storage {tag}: line {t_lines[j]!r} "
+                                         f"and its record differ in the address")
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        shutil.rmtree(d, ignore_errors=True)
+        os.remove(lines_path)
+        runs.append(launches)
+        say(f"[10b generate --storage] {tag} over {STORAGE_SEEDS} seeds{' ' + ' '.join(extra) if extra else ''}: "
+            f"{table.num_rows} records == {len(lines)} lines, {len(paths)} chunks "
+            f"({nbytes} B) as stderr names them, 256 sampled records == host KeyDeriver "
+            f"(every column but timestamp) and == their lines; E1 {launches['records']} "
+            f"launches, D2 0; {secs:.2f} s [{card}]")
+    # scan --storage: the planted key's record alone
+    seed = start + 12345
+    target = KeyDeriver().derive(host_hash_keys("sha256", seed)[1]).p2pkh_compressed
+    tpath = write_targets("smoke_storage_targets.txt", [target],
+                          [p2pkh_address(rng.bytes(20)) for _ in range(4096)])
+    d = str(base / "scan")
+    rc, text, log, launches, secs = run_cli(
+        ["scan", "--transform", "sha256", "--targets", tpath, "--storage", d, "range",
+         "--start", str(start), "--end", str(start + (1 << 19) - 1)])
+    table = read_records(storage_lines(log, d)).drop_columns(["timestamp"]).to_pylist()
+    want = host_record(str(seed), "sha256", host_hash_keys("sha256", seed)[1], target)
+    if rc != 0 or text.count("========== HIT") != 1 or table != [want]:
+        raise AssertionError(f"scan --storage: rc {rc}, {len(table)} records: {table[:2]}")
+    check_launches("scan --storage", launches, {"records": 0, "hash160": None})
+    runs.append(launches)
+    say(f"[10b scan --storage] sha256 over 2^19 seeds, one key planted: exactly one record, "
+        f"matched_target {target}, every column == the host; E1 0 launches [{card}]")
+    # query on a 65,536-record run
+    d = str(base / "query")
+    rc, _, log, launches, _ = run_cli(
+        ["generate", "-o", os.devnull, "--transform", "md5", "--storage", d, "range", "--start",
+         str(start), "--end", str(start + QUERY_RECORDS - 1)])
+    check_launches("generate --storage md5", launches, {"records": 1})
+    runs.append(launches)
+    sql = "SELECT transform, COUNT(*) AS n FROM results GROUP BY transform"
+    t0 = time.perf_counter()
+    rc, text, log, launches, _ = run_cli(["query", d, sql, "--format", "csv"])
+    qs = time.perf_counter() - t0
+    if rc != 0 or text != f"transform,n\nmd5,{QUERY_RECORDS}\n":
+        raise AssertionError(f"query: rc {rc}, {text!r}")
+    if any(launches.values()):
+        raise AssertionError(f"query launched kernels: {launches}")
+    from vuke_tpu_torch.storage import query as q
+    engine = "duckdb" if q._duckdb() is not None else "the sqlite fallback"
+    say(f"[10b query] {sql!r} over {QUERY_RECORDS} records through {engine}: {text!r} in "
+        f"{qs:.2f} s, no kernel [{card}]")
+    bench_dir = base / "bench"          # a user's directory: bench_storage leaves its files
+    bench_dir.mkdir()
+    (bench_dir / "keep.txt").write_text("kept\n")
+    r = bench_storage("sha256", str(bench_dir))
+    if os.listdir(bench_dir) != ["keep.txt"]:
+        raise AssertionError(f"bench_storage left {os.listdir(bench_dir)} in its directory")
+    shutil.rmtree(base, ignore_errors=True)
+    say(f"[10b storage rate] generate --storage sha256 over {r['seeds']} seeds, batch "
+        f"{r['batch']}, zstd 3: {r['records_per_sec']:.0f} records/s ({r['records']} records "
+        f"in {r['seconds']:.3f} s, {r['files']} chunks, {r['bytes']} B); a superbatch: host "
+        f"issue {r['host_issue_ms_per_superbatch']:.3f} ms, copy wait "
+        f"{r['host_copy_wait_ms_per_superbatch']:.3f} ms, columns "
+        f"{r['host_columns_ms_per_superbatch']:.3f} ms, Arrow + Parquet write "
+        f"{r['host_write_ms_per_superbatch']:.3f} ms; wall under the profiler "
+        f"{r['wall_ms_per_superbatch']:.3f} ms, device busy "
+        f"{r['device_busy_ms_per_superbatch']:.4f} ms (E1 {r['e1_ms_per_superbatch']:.4f}, "
+        f"copies {r['copy_ms_per_superbatch']:.4f}), idle share "
+        f"{r['device_idle_share_per_superbatch']:.4f}; host path (KeyDeriver.derive -> "
+        f"ResultRecord -> records_to_batch) {r['host_path_records_per_sec']:.1f} records/s on "
+        f"{r['host_path_records']} [{card}]")
+    return runs
+
+
+def phase_storage_tail(dev, rng, card: str) -> list:
+    """10b, decided before it starts: pyarrow present or not."""
+    import importlib.util
+
+    if importlib.util.find_spec("pyarrow") is None:
+        say(f"[10b] not run: pyarrow is not installed on this machine (10a ran) [{card}]")
+        return []
+    return phase_storage(dev, rng, card)
+
+
 def main() -> int:
     dev, card, int_ops_per_s = phase_environment()
     rng = np.random.default_rng(20261016)
@@ -2496,6 +2854,8 @@ def main() -> int:
                                                                    int_ops_per_s)
     runs += ([phase_electrum_scan(dev, rng, card, decoys), phase_multibit(dev, rng, card)]
              + phase_wallet_scans(dev, rng, card, decoys))
+    errs["records"], times["records"], verbose = phase_records(dev, rng, card, int_ops_per_s)
+    runs += [verbose] + phase_storage_tail(dev, rng, card)
     summary = {"kernels": [
         {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": sum(run[name] for run in runs), "max_abs_err": errs[name],

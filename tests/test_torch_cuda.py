@@ -325,3 +325,51 @@ def test_w2_matches_plain_and_hashlib(dev):
     Electrum vector through master_pubkeys_device (chip_smoke phase 9b)."""
     assert chip_smoke.w2_against_plain(dev, np.random.default_rng(6), 256) == 0
     chip_smoke.w2_full(dev, np.random.default_rng(6), 8)
+
+
+@pytest.mark.parametrize("network", ["bitcoin", "testnet", "signet", "regtest"])
+def test_records_kernel_matches_plain(dev, network):
+    """E1 on the edge keys and digests with leading zero bytes (chip_smoke
+    phase 10a's inputs) and random lanes, one launch, byte for byte
+    against ``records_plain`` on the card."""
+    from vuke_tpu_torch import encode
+    from vuke_tpu_torch.cores import records
+
+    k, hc, hu, _ = chip_smoke.record_inputs(np.random.default_rng(7), N)
+    kd, hcd, hud = k.to(dev), hc.to(dev), hu.to(dev)
+    net = encode.NETWORKS[network]
+    before = records.KERNEL.launches
+    got = records.encode_records(kd, hcd, hud, net)
+    assert records.KERNEL.launches == before + 1
+    assert torch.equal(got, records.records_plain(kd, hcd, hud, net))
+    assert torch.equal(got.cpu(), records.records_plain(k, hc, hu, net))
+
+
+def test_derive_records_matches_the_host(dev):
+    """The derive path with E1 (K3 -> K4 -> K2 -> E1) against the host
+    ``KeyDeriver`` on 64 lanes, string for string."""
+    from vuke_tpu_torch import encode, pipeline
+    from vuke_tpu_torch.cores import records
+    from vuke_tpu_torch.derive import KeyDeriver
+
+    words = torch.from_numpy(np.random.default_rng(8).integers(0, 1 << 32, (8, 1024),
+                                                              dtype=np.uint32)
+                             .view(np.int32)).view(torch.uint32).to(dev)
+    norm, x, y, rows = pipeline.derive_records(words, encode.REGTEST)
+    host = lambda t: t.T.contiguous().view(torch.int32).cpu().numpy().view(np.uint32)  # noqa: E731
+    block = records.RecordBlock("t", [str(j) for j in range(1024)], host(norm), host(x),
+                                host(y), rows.cpu().numpy())
+    deriver = KeyDeriver(encode.REGTEST)
+    assert all(d == deriver.derive(d.raw) for d in block.derived()[:64])
+
+
+def test_records_launch_refuses_a_long_hrp(dev):
+    """A launch the C entry refuses (a 5-byte hrp) raises."""
+    from vuke_tpu_torch.cores import records
+
+    rows = torch.empty((32, records.ROW), dtype=torch.uint8, device=dev)
+    w = torch.zeros((8, 32), dtype=torch.uint32, device=dev)
+    h = torch.zeros((5, 32), dtype=torch.uint32, device=dev)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        records.KERNEL.launch(dev, w.data_ptr(), h.data_ptr(), h.data_ptr(), 0, 0x80, 0, 5, 1,
+                              rows.data_ptr(), 32)

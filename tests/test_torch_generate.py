@@ -174,16 +174,36 @@ def test_checkpoint_resumes_and_a_rerun_does_nothing(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["generate", "--storage", "out", "range", "--start", "1", "--end", "2"],
-    ["generate", "--cloud-upload", "range", "--start", "1", "--end", "2"],
-    ["generate", "--iceberg-catalog", "c", "range", "--start", "1", "--end", "2"],
-    ["generate", "--transform", "armory", "--chunk-bytes", "1M", "range", "--start", "1",
-     "--end", "2"],
+    ["generate", "--storage", "OUT", "--batch", "64", "range", "--start", "1", "--end", "64"],
+    ["generate", "--cloud-upload", "--batch", "64", "range", "--start", "1", "--end", "64"],
+    ["generate", "--iceberg-catalog", "c", "--batch", "64", "range", "--start", "1", "--end",
+     "64"],
+    ["generate", "--transform", "armory", "--chunk-bytes", "1M", "--batch", "64", "range",
+     "--start", "1", "--end", "64"],
     ["query"],
 ])
-def test_what_is_not_ported_stops(argv):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(argv)
+def test_what_is_not_ported_stops(argv, tmp_path, capsys):
+    """The storage, cloud and Iceberg options and ``query``, which the port
+    once stopped as not ported, run: ``--storage`` writes one record a
+    line, ``--cloud-upload`` and ``--iceberg-catalog`` without ``--storage``
+    do nothing (as in the JAX package), and ``query`` without a path is a
+    usage error (exit 2)."""
+    argv = [str(tmp_path / "out") if a == "OUT" else a for a in argv]
+    if argv == ["query"]:
+        with pytest.raises(SystemExit) as e:
+            cli.main(argv)
+        assert e.value.code == 2
+        assert "not ported" not in "".join(capsys.readouterr())
+        return
+    rc, out, err = port_run(argv, capsys)
+    assert rc == 0 and "not ported" not in out + err
+    lines = out.count("\n")
+    assert lines and "Done. Inputs: " in err
+    if "--storage" in argv:
+        import pyarrow.parquet as pq
+        (path,) = (tmp_path / "out").rglob("*.parquet")
+        assert pq.read_metadata(path).num_rows == lines
+        assert err.endswith(f" ({cli._format_bytes(path.stat().st_size)})\n")
 
 
 def test_warmup_runs_each_transform_once(capsys):

@@ -125,16 +125,25 @@ def test_cli_scan_prints_the_hit(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["scan", "--transform", "electrum", "--targets", "x", "--cloud-bucket", "b", "range",
+    ["scan", "--transform", "electrum", "--targets", "T", "--cloud-bucket", "b", "range",
      "--start", "1", "--end", "2"],
-    ["scan", "--transform", "milksad", "--targets", "x", "--storage", "d", "wordlist",
-     "--file", "x"],
-    ["generate", "--bitimage-path", "m/0", "--compression", "zstd", "range", "--start", "1",
-     "--end", "2"],
+    ["scan", "--transform", "milksad", "--targets", "T", "--storage", "D", "wordlist",
+     "--file", "W"],
+    ["generate", "--bitimage-path", "m/0", "--compression", "zstd", "--batch", "64", "range",
+     "--start", "1", "--end", "64"],
 ])
-def test_cli_refuses_what_is_not_ported(argv):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(argv)
+def test_cli_refuses_what_is_not_ported(argv, tmp_path, capsys):
+    """The storage and cloud options, which the port once refused as not
+    ported, now run (``--cloud-bucket`` alone uploads nothing; a scan
+    without hits writes no chunk) and end in the ``Done.`` line."""
+    (tmp_path / "T").write_text("1BgGZ9tcN4rm9KBzDn7KprQz87SZ26SAMH\n")
+    (tmp_path / "W").write_text("alpha\nbeta\n")
+    argv = [str(tmp_path / a) if a in ("T", "D", "W") else a for a in argv]
+    assert cli.main(argv[:1] + ["--device", "cpu"] + argv[1:]) == 0
+    out, err = capsys.readouterr()
+    assert "not ported" not in out + err
+    assert err.splitlines()[-1].startswith("Done. Inputs: ")
+    assert not list(tmp_path.rglob("*.parquet"))
 
 
 def test_port_imports_without_jax():
@@ -156,11 +165,17 @@ assert {'vuke_tpu_torch.' + m for m in ('transforms.strings', 'cores.digest', 'c
         'parallel.checkpoint', 'sources')} <= set(names), names
 assert {'vuke_tpu_torch.' + m for m in ('provider', 'analyze', 'analyze.analyzers',
         'analyze.key_parser', 'analyze.output', 'analyze.sweeps', 'cores.sweep')} <= set(names)
+assert {'vuke_tpu_torch.' + m for m in ('storage', 'storage.records', 'storage.parquet_backend',
+        'storage.output', 'storage.query', 'storage.cloud', 'storage.cloud.s3',
+        'storage.iceberg', 'cores.records')} <= set(names), names
 for name in names + ['chip_smoke']:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'vuke_tpu' or m.startswith('vuke_tpu.'))
 assert not bad, bad
+lazy = sorted(m for m in sys.modules
+              if m.split('.')[0] in ('pyarrow', 'requests', 'duckdb', 'pyiceberg'))
+assert not lazy, lazy
 print('OK', len(names))
 """
     env = dict(os.environ)

@@ -22,6 +22,10 @@ fenced by ``torch.cuda.synchronize()``, best of 3 windows.  Beside them:
 - ``bench_generate``: lines/s of ``generate`` over a range through the
   driver's generate mode (D2 on the card, ``pipeline.format_lines`` on the
   host) into a discarding sink and into a file;
+- ``bench_storage``: records/s of ``generate --storage`` into Parquet (E1
+  on the card, the host's hex columns, Arrow and the Parquet write), with
+  a superbatch's time split, beside the host path (``KeyDeriver.derive``,
+  ``ResultRecord``, ``records_to_batch``) on 256 keys;
 - ``bench_strings``: words/s and keys/s of a wordlist scan through
   ``pipeline.StringDriver``, batch by batch as ``sources.WordlistSource``
   feeds it;
@@ -552,6 +556,107 @@ def bench_generate(transform: str = "sha256", seeds: int = 1 << 20, batch: int =
                               for k, v in _breakdown(events, wall_ms, per).items()})
         console.close()
     os.remove(path)
+    out["device"] = torch.cuda.get_device_name(dev)
+    return out
+
+
+def bench_storage(transform: str = "sha256", directory=None, seeds: int = 1 << 20,
+                  batch: int = 1 << 19, host_keys: int = 256) -> dict:
+    """Records/s of ``generate --storage`` over ``seeds`` seeds from 2^24 at
+    ``batch`` a superbatch into Parquet under a fresh subdirectory of
+    ``directory`` (the package's ``_build/`` when None), which is all it
+    writes and all it removes (zstd 3, the command line's default), on the
+    host's clock after a warm-up (4096 seeds: the kernels); then one
+    superbatch under
+    ``torch.profiler``, with the host's time split: the launches
+    (``ScanProgram.run``), the wait for the copies (``HostCopy.arrays``),
+    the numpy and Arrow column assembly (``RecordBlock.record_batch``), the
+    Arrow concatenation and Parquet write (``StorageOutput._write_pending``);
+    the device's busy time with E1's share and the copies', and the idle
+    share.  Beside it the host path on ``host_keys`` keys of the same
+    transform: ``KeyDeriver.derive``, ``ResultRecord`` and
+    ``records_to_batch``, as the JAX package's ``StorageOutput.key_fast``
+    runs them."""
+    import os
+    import shutil
+    import tempfile
+    from . import kernels as kernels_mod
+
+    dev = require_cuda()
+    spec = parse_transform(transform)
+    parent = kernels_mod.BUILD_DIR if directory is None else directory
+    os.makedirs(parent, exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="bench_storage_", dir=parent)
+    try:
+        return _bench_storage(spec, directory, seeds, batch, host_keys, dev)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def _bench_storage(spec, directory: str, seeds: int, batch: int, host_keys: int, dev) -> dict:
+    """``bench_storage``'s runs, each into its own subdirectory of
+    ``directory``, removed once measured."""
+    import os
+    import shutil
+    from .cores import records as rec
+    from .pipeline import HostCopy, ScanProgram
+    from .storage import ParquetBackend, StorageOutput
+    from .storage import output as storage_output
+    from .storage.records import ResultRecord, records_to_batch
+
+    start = 1 << 24
+    out = {"metric": "generate_storage_records_per_sec", "transform": spec.name,
+           "seeds": seeds, "batch": batch, "order_batch": ORDER_BATCH,
+           "slots": spec.numeric.n_slots, "compression": "zstd", "compression_level": 3}
+
+    def run(sub: str, first: int, n: int, width: int = batch):
+        storage = StorageOutput(ParquetBackend(os.path.join(directory, sub)))
+        driver = ForwardDriver([spec], None, batch=width, device=dev, output=storage,
+                               order_batch=ORDER_BATCH)
+        res = driver.run_range(first, first + n - 1)
+        paths = storage.finish().paths
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        shutil.rmtree(os.path.join(directory, sub))
+        return res, paths, nbytes
+
+    run("warmup", start, 4096, 4096)
+    pos = start + 4096
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, paths, nbytes = run("timed", pos, seeds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out.update({"records": res.keys_generated, "seconds": secs,
+                "records_per_sec": res.keys_generated / secs, "files": len(paths),
+                "bytes": nbytes})
+    acc: dict = {}
+    undo = [_wrap(ScanProgram, "run", acc, "issue"), _wrap(HostCopy, "arrays", acc, "copy_wait"),
+            _wrap(rec.RecordBlock, "record_batch", acc, "columns"),
+            _wrap(storage_output.StorageOutput, "_write_pending", acc, "write")]
+    try:
+        pos += seeds
+        _, events, wall_ms = _profiled(lambda: run("profiled", pos, batch), 1,
+                                       {rec.KERNEL.entry, hash160.KERNEL.entry})
+    finally:
+        for u in undo:
+            u()
+    out.update({f"host_{k}_ms_per_superbatch": v * 1e3 for k, v in acc.items()})
+    out.update({f"{k}_per_superbatch": v for k, v in _breakdown(events, wall_ms, 1).items()})
+    out["e1_ms_per_superbatch"] = events.get(rec.KERNEL.entry, (0.0, 0))[0]
+    out["copy_ms_per_superbatch"] = sum(ms for name, (ms, _) in events.items()
+                                        if name.startswith("Memcpy"))
+    deriver = KeyDeriver()
+    keys, _ = spec.numeric.keygen(*(u32(torch.tensor([pos >> 32] * host_keys)),
+                                    u32(torch.arange(pos, pos + host_keys) & 0xFFFFFFFF)),
+                                  plain=True)
+    blobs = [b"".join(int(w).to_bytes(4, "big") for w in i64(keys[0, :, j]))
+             for j in range(host_keys)]
+    t1 = time.perf_counter()
+    records_to_batch([ResultRecord.from_derived(str(pos + j), spec.name, deriver.derive(b))
+                      for j, b in enumerate(blobs)])
+    host_secs = time.perf_counter() - t1
+    out.update({"host_path_records": host_keys, "host_path_seconds": host_secs,
+                "host_path_records_per_sec": host_keys / host_secs})
     out["device"] = torch.cuda.get_device_name(dev)
     return out
 

@@ -10,16 +10,21 @@
     python -m vuke_tpu_torch bench --generate T | --strings T [--batch N]
     python -m vuke_tpu_torch bench --analyze F [--mode M]
     python -m vuke_tpu_torch bench --wallet multibit|electrum
+    python -m vuke_tpu_torch bench --generate T --storage DIR
     python -m vuke_tpu_torch analyze KEY [--fast] [--mask N] [--cascade C]
         [--analyzer A ...] [--mnemonic M | --mnemonic-file F] [--passphrase P]
         [--chain-depth D] [--puzzle P] [--verify C] [--json]
         [--batch N] [--max-seeds N] [--checkpoint FILE] [--device D]
+    python -m vuke_tpu_torch query PATH [SQL] [--format/-f table|json|csv] [--schema]
 
-OPTIONS are those of ``vuke_tpu/cli.py`` that the port honours:
-``--transform`` (repeatable, default sha256), ``--network``, ``-v``,
-``-o FILE``, ``--batch``, ``--checkpoint``, the ``--bitimage-*`` options
-(for ``--transform bitimage``) and ``--device`` (cuda, the kernels, or
-cpu, the plain versions).  SOURCE is ``range --start A --end
+OPTIONS are those of ``vuke_tpu/cli.py``: ``--transform`` (repeatable,
+default sha256), ``--network``, ``-v``, ``-o FILE``, ``--storage DIR`` with
+``--chunk-records``, ``--chunk-bytes``, ``--compression`` and
+``--compression-level``, the ``--cloud-*`` and ``--iceberg-*`` options
+(and their ``CLOUD_*`` and ``ICEBERG_*`` environment variables),
+``--batch``, ``--checkpoint``, the ``--bitimage-*`` options (for
+``--transform bitimage``) and ``--device`` (cuda, the kernels, or cpu, the
+plain versions).  SOURCE is ``range --start A --end
 B``, ``wordlist --file F``, ``timestamps --start DATE --end DATE
 [--microseconds]``, ``stdin`` or ``files --file F | --dir D``.  Stdout and
 stderr are the JAX package's for the same command line (``vuke_tpu/cli.py:
@@ -32,9 +37,13 @@ stderr.  A range shorter than the batch clamps it, 1024-aligned.
 ones (electrum, electrum:change, multibit, armory, bitimage) included.
 ``analyze`` is ``vuke_tpu/cli.py:543-575``: every option, its stdout and
 stderr, its sweeps on the card (S1 and S2) and the multibit-hd analyzer's
-PBKDF2 (W1) unless ``--device cpu``.  The storage, cloud and Iceberg
-options and ``query`` stop with a "not ported yet" error.  ``single`` runs
-on the host alone, as the JAX package's does.  ``VUKE_TPU_SMUL13=0`` in
+PBKDF2 (W1) unless ``--device cpu``.  ``--storage`` writes the JAX
+package's Parquet files (``storage/``): every generate record, its string
+columns from E1 (``cores/records.py``) on the card, or a scan's hits; then
+``Storage: N files written (X)`` on stderr, the cloud upload and the
+Iceberg registration (``vuke_tpu/cli.py:160-230``).  ``single`` and
+``query`` (``vuke_tpu/cli.py:581-597``) run on the host alone, as the JAX
+package's do.  ``VUKE_TPU_SMUL13=0`` in
 the environment switches the scalar multiplication from K3 to K6 and
 ``VUKE_TPU_SEQUENTIAL=0`` turns the sequential path off, as they do for
 the JAX package.
@@ -60,19 +69,7 @@ from .pipeline import DEFAULT_BATCH, ORDER_BATCH, ForwardDriver, ProcessStats, S
 from .progress import Progress
 from .transforms import parse_transform
 
-# options of vuke_tpu/cli.py that the port takes and refuses: storage,
-# cloud upload and Iceberg (their values default to None)
-NOT_PORTED_OPTIONS = (
-    ("--storage", {}), ("--chunk-records", {}), ("--chunk-bytes", {}), ("--compression", {}),
-    ("--compression-level", {}), ("--cloud-upload", {"action": "store_const", "const": True}),
-    ("--cloud-endpoint", {}), ("--cloud-bucket", {}),
-    ("--cloud-delete-local", {"action": "store_const", "const": True}),
-    ("--cloud-fail-fast", {"action": "store_const", "const": True}),
-    ("--iceberg-catalog", {}), ("--iceberg-namespace", {}), ("--iceberg-table", {}))
-
-
-def _not_ported(what: str):
-    raise SystemExit(f"vuke_tpu_torch: {what} is not ported yet")
+COMPRESSIONS = ("zstd", "snappy", "gzip", "lz4", "none")
 
 
 def _usage_error(msg: str):
@@ -87,6 +84,101 @@ def _fail(msg: str):
     errors (click's ``ClickException``: ``Error: ...``, 1)."""
     print(f"Error: {msg}", file=sys.stderr)
     raise SystemExit(1)
+
+
+def _parse_byte_size(s: str) -> int:
+    """100M / 1G / plain bytes (``vuke_tpu/cli.py:19-32``)."""
+    s = s.strip().upper()
+    mult = 1
+    if s.endswith("K"):
+        mult, s = 1024, s[:-1]
+    elif s.endswith("M"):
+        mult, s = 1024 ** 2, s[:-1]
+    elif s.endswith("G"):
+        mult, s = 1024 ** 3, s[:-1]
+    try:
+        return int(s) * mult
+    except ValueError:
+        _usage_error(f"Invalid value for '--chunk-bytes': invalid byte size: {s!r}")
+
+
+def _format_bytes(n: int) -> str:
+    for unit, div in (("GB", 1024 ** 3), ("MB", 1024 ** 2), ("KB", 1024)):
+        if n >= div:
+            return f"{n / div:.1f} {unit}"
+    return f"{n} B"
+
+
+def _env_default(value, name: str, default=None):
+    """An option's value, else its environment variable's, else the default
+    (click's ``envvar``)."""
+    return value if value is not None else os.environ.get(name) or default
+
+
+def _build_outputs(args):
+    """The console (or ``-o`` file) and, with ``--storage``, the Parquet
+    output behind it (``vuke_tpu/cli.py:160-181``): (output, the storage
+    output or None)."""
+    from .output import MultiOutput
+
+    # the options' checks, with or without --storage, as click's
+    chunk_bytes = _parse_byte_size(args.chunk_bytes)
+    if not 1 <= args.compression_level <= 22:
+        _usage_error(f"Invalid value for '--compression-level': {args.compression_level} is "
+                     f"not in the range 1<=x<=22.")
+    console = (ConsoleOutput.to_file(args.output_path, verbose=args.verbose) if args.output_path
+               else ConsoleOutput(verbose=args.verbose))
+    if not args.storage_dir:
+        return console, None
+    from .storage import ParquetBackend, StorageOutput
+
+    storage = StorageOutput(ParquetBackend(
+        args.storage_dir, max_records_per_chunk=args.chunk_records,
+        max_bytes_per_chunk=chunk_bytes, compression=args.compression,
+        compression_level=args.compression_level))
+    return MultiOutput([console, storage]), storage
+
+
+def _post_run_storage(args, storage_output):
+    """finish -> the chunks' sizes on stderr -> stat -> cloud upload ->
+    Iceberg registration (``vuke_tpu/cli.py:184-226``)."""
+    if storage_output is None:
+        return
+    summary = storage_output.finish()
+    if summary.paths:
+        total = sum(os.path.getsize(p) for p in summary.paths if os.path.exists(p))
+        print(f"\nStorage: {len(summary.paths)} files written ({_format_bytes(total)})",
+              file=sys.stderr)
+        for p in summary.paths:
+            sz = os.path.getsize(p) if os.path.exists(p) else 0
+            print(f"  {p} ({_format_bytes(sz)})", file=sys.stderr)
+    if not (args.cloud_upload and summary.paths):
+        return
+    from .storage.cloud import CloudConfig, sync_to_cloud
+
+    endpoint = _env_default(args.cloud_endpoint, "CLOUD_ENDPOINT")
+    catalog = _env_default(args.iceberg_catalog, "ICEBERG_CATALOG")
+    cfg = CloudConfig(endpoint=endpoint, bucket=_env_default(args.cloud_bucket, "CLOUD_BUCKET"),
+                      delete_local=args.cloud_delete_local, fail_fast=args.cloud_fail_fast)
+    stats_by_key = None
+    if catalog:
+        # stat the local chunks before the upload: --cloud-delete-local
+        # removes them, and the snapshot needs their sizes and record counts
+        from .storage.iceberg import stat_local_files
+        try:
+            stats_by_key = stat_local_files(summary.paths, args.storage_dir)
+        except Exception as e:
+            print(f"Iceberg: could not stat local chunks: {e}", file=sys.stderr)
+    uploaded = sync_to_cloud(summary.paths, args.storage_dir, cfg)
+    if catalog and uploaded:
+        from .storage.iceberg import join_uploaded_metadata, register_snapshot
+        files = (join_uploaded_metadata(stats_by_key, uploaded, endpoint=endpoint)
+                 if stats_by_key is not None else uploaded)
+        register_snapshot(catalog_url=catalog,
+                          namespace=_env_default(args.iceberg_namespace, "ICEBERG_NAMESPACE",
+                                                 "vuke"),
+                          table=_env_default(args.iceberg_table, "ICEBERG_TABLE", "results"),
+                          files=files)
 
 
 def _device(name: str) -> torch.device:
@@ -151,12 +243,6 @@ def _make_source(args):
     return sources.FilesSource(args.file_path or args.dir_path, recursive=bool(args.dir_path))
 
 
-def _check_ported(args):
-    for flag, _ in NOT_PORTED_OPTIONS:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            _not_ported(f"option {flag}")
-
-
 def _run_forward(args, specs, source, pools) -> int:
     """generate (``pools`` None) or scan over ``source``: the port of
     ``vuke_tpu/cli.py::_run_forward``."""
@@ -166,8 +252,7 @@ def _run_forward(args, specs, source, pools) -> int:
     deriver = KeyDeriver(encode.parse_network(args.network))
     transforms = args.transform or ["sha256"]
     dev = _device(args.device)
-    out = (ConsoleOutput.to_file(args.output_path, verbose=args.verbose) if args.output_path
-           else ConsoleOutput(verbose=args.verbose))
+    out, storage = _build_outputs(args)
     print("Scanning..." if pools is not None else "Generating keys...", file=sys.stderr)
     label = "scan" if pools is not None else "generate"
     ranged = isinstance(source, (RangeSource, TimestampSource))
@@ -208,17 +293,16 @@ def _run_forward(args, specs, source, pools) -> int:
     out.close()
     print(f"Done. Inputs: {stats.inputs_processed}, Keys: {stats.keys_generated}, "
           f"Matches: {stats.matches_found}", file=sys.stderr)
+    _post_run_storage(args, storage)
     return 0
 
 
 def cmd_generate(args) -> int:
-    _check_ported(args)
     specs = _parse_specs(args.transform or ["sha256"], args)
     return _run_forward(args, specs, _make_source(args), None)
 
 
 def cmd_scan(args) -> int:
-    _check_ported(args)
     specs = _parse_specs(args.transform or ["sha256"], args)
     source = _make_source(args)
     return _run_forward(args, specs, source, _load_targets(args.targets))
@@ -333,6 +417,23 @@ def cmd_analyze(args) -> int:
     return 0
 
 
+def cmd_query(args) -> int:
+    """SQL over stored results (``vuke_tpu/cli.py:581-597``), on the host."""
+    from .storage.query import QueryExecutor, format_results
+
+    if not os.path.exists(args.path):
+        _usage_error(f"Invalid value for 'PATH': Path {args.path!r} does not exist.")
+    ex = QueryExecutor(args.path)
+    if args.show_schema:
+        print(ex.schema_text())
+        return 0
+    if not args.sql:
+        _usage_error("SQL query required (or use --schema)")
+    rows, columns = ex.query(args.sql)
+    print(format_results(rows, columns, args.fmt))
+    return 0
+
+
 def cmd_bench(args) -> int:
     from . import benchmark
 
@@ -349,6 +450,9 @@ def cmd_bench(args) -> int:
     if args.scan:
         print(json.dumps(benchmark.bench_scan(args.scan, pool_size=args.pool,
                                               batch=args.batch)))
+        return 0
+    if args.generate and args.storage:
+        print(json.dumps(benchmark.bench_storage(args.generate, args.storage)))
         return 0
     if args.generate:
         print(json.dumps(benchmark.bench_generate(args.generate, batch=args.batch)))
@@ -390,8 +494,27 @@ def _run_options(p: argparse.ArgumentParser):
                    help="bitimage: a file of passphrases, one a line, each tried")
     p.add_argument("--bitimage-derive-count", type=int, default=1,
                    help="bitimage: addresses a passphrase, the path's last index incremented")
-    for flag, kw in NOT_PORTED_OPTIONS:
-        p.add_argument(flag, default=None, help="not ported yet", **kw)
+    p.add_argument("--storage", dest="storage_dir", default=None,
+                   help="storage directory for Parquet output")
+    p.add_argument("--chunk-records", type=int, default=1_000_000,
+                   help="records a Parquet chunk (default 1000000; 0: no limit)")
+    p.add_argument("--chunk-bytes", default="100M",
+                   help="bytes a Parquet chunk: 100M, 1G, plain bytes (default 100M; 0: no limit)")
+    p.add_argument("--compression", default="zstd", choices=COMPRESSIONS)
+    p.add_argument("--compression-level", type=int, default=3, help="1-22 (zstd, gzip)")
+    p.add_argument("--cloud-upload", action="store_true",
+                   help="upload the chunks to S3-compatible storage after the run")
+    p.add_argument("--cloud-endpoint", default=None, help="(env CLOUD_ENDPOINT)")
+    p.add_argument("--cloud-bucket", default=None, help="(env CLOUD_BUCKET)")
+    p.add_argument("--cloud-delete-local", action="store_true",
+                   help="delete each chunk once it is uploaded")
+    p.add_argument("--cloud-fail-fast", action="store_true",
+                   help="stop the upload at the first failure")
+    p.add_argument("--iceberg-catalog", default=None,
+                   help="Iceberg REST catalog to register the uploads in (env ICEBERG_CATALOG)")
+    p.add_argument("--iceberg-namespace", default=None,
+                   help="(env ICEBERG_NAMESPACE, default vuke)")
+    p.add_argument("--iceberg-table", default=None, help="(env ICEBERG_TABLE, default results)")
 
 
 def _sources(p: argparse.ArgumentParser):
@@ -459,6 +582,10 @@ def build_parser() -> argparse.ArgumentParser:
     bench.add_argument("--generate", metavar="TRANSFORM",
                        help="lines/s of generate over a range with this transform, into "
                             "a discarding sink and into a file, with its profile, instead")
+    bench.add_argument("--storage", metavar="DIR",
+                       help="with --generate: records/s of generate --storage into Parquet "
+                            "in a fresh subdirectory of DIR (removed after the run), a "
+                            "superbatch's time split, and the host path's rate")
     bench.add_argument("--strings", metavar="TRANSFORM",
                        help="words/s and keys/s of a wordlist scan with this transform, "
                             "with its profile, instead")
@@ -499,8 +626,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (the kernels) or cpu (the plain versions)")
     an.set_defaults(func=cmd_analyze)
 
-    sub.add_parser("query", help="not ported yet").set_defaults(
-        func=lambda a: _not_ported("command 'query'"))
+    query = sub.add_parser("query", help="query stored results using SQL")
+    query.add_argument("path")
+    query.add_argument("sql", nargs="?", default=None)
+    query.add_argument("--format", "-f", dest="fmt", default="table",
+                       choices=("table", "json", "csv"))
+    query.add_argument("--schema", dest="show_schema", action="store_true")
+    query.set_defaults(func=cmd_query)
     return p
 
 

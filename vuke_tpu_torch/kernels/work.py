@@ -29,6 +29,7 @@ outputs, which is how the tests check them.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 from ..cores.hash160 import (RMD_IV, RMD_KL, RMD_KR, RMD_RL, RMD_RR, RMD_SL, RMD_SR, SHA_IV,
@@ -587,6 +588,174 @@ def p2pkh() -> Ops:
     return (t.ops + 28 * Ops(mul=2 * 4 + 2, alu=1, add=6) + 28 * Ops(mul=3, alu=1)
             + 34 * Ops(alu=5))
 
+
+# --- E1 (csrc/records.cu): a record's string columns.  Counted on known and
+# lane words as the hashes are; run on known words it returns the record's
+# strings and statistics ---
+
+_B58_ALPHABET = b"123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
+_BECH32_CHARSET = b"qpzry9x8gf2tvdw0s3jn54khce6mua7l"
+_BECH32_GEN = (0x3B6A57B2, 0x26508E6D, 0x1EA119FA, 0x3D4233DD, 0x2A1462B3)
+# a step of a multi-limb division by a constant below 2^32: the 64-bit
+# multiply-high (4 wide products), the quotient's shift, the remainder's
+# wide product and subtract (as ``p2pkh``); a digit off a remainder: a
+# multiply-high, the remainder's multiply-add, a shift
+_DIV_STEP = Ops(mul=2 * 4 + 2, alu=1, add=6)
+_DIGIT = Ops(mul=3, alu=1)
+
+
+def _count(t: Trace, ops: Ops, k: float = 1):
+    t.mul += k * ops.mul
+    t.alu += k * ops.alu
+    t.add_ += k * ops.add
+
+
+def _divide_out(t: Trace, limbs: list, nbits: int, divisor: int, passes: int, per: int,
+                radix: int) -> list:
+    """``passes`` divisions of the BE limbs (a number below 2^nbits) by
+    ``divisor`` = radix^per, ``per`` digits off each remainder: the digits,
+    most significant first.  A step whose remainder and limb are both
+    known zero folds; after each pass the limbs the number has outgrown are
+    known zero."""
+    limbs, digits = list(limbs), []
+    for r in range(passes):
+        rem = 0
+        for j, limb in enumerate(limbs):
+            if rem is None or limb is None:
+                _count(t, _DIV_STEP)
+                rem, limbs[j] = None, None
+            elif rem or limb:
+                cur = (rem << 32) | limb
+                rem, limbs[j] = cur % divisor, cur // divisor
+        keep = max(0, math.ceil((nbits - (r + 1) * math.log2(divisor)) / 32))
+        limbs[:len(limbs) - keep] = [0] * (len(limbs) - keep)
+        group = []
+        for _ in range(per):
+            group.append(None if rem is None else rem % radix)
+            rem = None if rem is None else rem // radix
+        if None in group:
+            _count(t, _DIGIT, per - 1)
+        digits = group[::-1] + digits
+    return digits
+
+
+def _base58_lane(t: Trace, limbs: list, nbytes: int, zeros, width: int):
+    """base58 of the number in ``limbs`` (``nbytes`` bytes) after ``zeros``
+    leading zero bytes, each of the ``width`` characters from its digit (5
+    compares and selects)."""
+    passes = -(-math.ceil(8 * nbytes / math.log2(58)) // 5)
+    digits = _divide_out(t, limbs, 8 * nbytes, 58 ** 5, passes, 5, 58)
+    if None in digits or zeros is None:
+        _count(t, Ops(alu=5), width)
+        return None
+    body = bytes(_B58_ALPHABET[d] for d in digits).lstrip(b"1")
+    return b"1" * zeros + body
+
+
+def _zero_bytes(t: Trace, byts: list):
+    """Leading zero bytes (a count leading zeros and a select a limb)."""
+    if None in byts:
+        t.alu += 2 * -(-len(byts) // 4)
+        return None
+    return len(byts) - len(bytes(byts).lstrip(b"\0"))
+
+
+def _sha256d_word0(t: Trace, m: list, nbytes: int):
+    """The checksum word: SHA-256 of the payload's one block, then of its
+    digest."""
+    block = list(m) + [0] * (14 - len(m))
+    block[nbytes // 4] = t.lop(lambda v: v | (0x80 << (8 * (3 - nbytes % 4))), block[nbytes // 4])
+    s = sha256_block(t, SHA_IV, block + [0, 8 * nbytes])
+    return sha256_block(t, SHA_IV, s + [0x80000000] + [0] * 6 + [256])[0]
+
+
+def _bytes_be(words: list) -> list:
+    return [None if w is None else (w >> s) & 0xFF for w in words for s in (24, 16, 8, 0)]
+
+
+def _base58check_lane(t: Trace, words: list, version: int, one: bool, width: int):
+    """base58check of version || the payload (the BE ``words`` [|| 0x01]):
+    its message words and limbs from funnel shifts, the checksum, the
+    digits of the number."""
+    tail = 0x01000000 if one else 0
+    m = ([t.funnel(version, words[0], 8)]
+         + [t.funnel(words[j - 1], words[j], 8) for j in range(1, len(words))]
+         + [t.funnel(words[-1], tail, 8)])
+    nbytes = 1 + 4 * len(words) + one
+    chk = _sha256d_word0(t, m, nbytes)
+    byts = [version] + _bytes_be(words) + [1] * one + _bytes_be([chk])
+    if one:        # 38 bytes: the top limb holds two
+        limbs = ([t.funnel(version, words[0], 24)]
+                 + [t.funnel(words[j - 1], words[j], 24) for j in range(1, len(words))]
+                 + [t.funnel(words[-1], tail, 24), chk])
+    else:
+        limbs = [version] + list(words) + [chk]
+    return _base58_lane(t, limbs, nbytes + 4, _zero_bytes(t, byts), width)
+
+
+def _bech32_lane(t: Trace, d: list, hrp: str):
+    """bech32 v0 of the 20 bytes in BE words d: 32 groups (a funnel shift
+    and a mask each), the polymod over them and 7 zeros from the hrp's
+    state (a shift, a mask-shift-xor, 5 selects and xors a step)."""
+    chk = 1
+    for v in [ord(c) >> 5 for c in hrp] + [0] + [ord(c) & 31 for c in hrp]:
+        top = chk >> 25
+        chk = (chk & 0x1FFFFFF) << 5 ^ v
+        for i, gen in enumerate(_BECH32_GEN):
+            chk ^= gen if (top >> i) & 1 else 0
+    groups = [0]
+    for g in range(32):
+        bit = 5 * g
+        w, off = bit >> 5, bit & 31
+        lo = d[w + 1] if w + 1 < 5 else 0
+        groups.append(t.lop(lambda v: v & 31, t.funnel(d[w], lo, 27 - off + 32)
+                            if off > 27 else t.shr(d[w], 27 - off)))
+    for v in groups + [0] * 6:
+        top = t.shr(chk, 25)
+        chk = t.lop(lambda c, x: ((c & 0x1FFFFFF) << 5) ^ x, chk, v)
+        for i, gen in enumerate(_BECH32_GEN):
+            chk = t.lop(lambda c, tp: c ^ (gen if (tp >> i) & 1 else 0), chk, top)
+    chk = t.lop(lambda c: c ^ 1, chk)
+    if chk is None or None in groups:
+        return None
+    data = groups + [(chk >> (5 * (5 - i))) & 31 for i in range(6)]
+    return hrp.encode() + b"1" + bytes(_BECH32_CHARSET[v] for v in data)
+
+
+def records_lane(t: Trace, k: list, hc: list, hu: list, p2pkh_version: int = 0x00,
+                 wif_version: int = 0x80, hrp: str = "bc"):
+    """E1 on one lane: the 8 BE key words, both digests as 5 LE words ->
+    {column: bytes} and (bit length, Hamming weight, leading zero hex
+    digits), as csrc/records.cu computes them; None where a lane word
+    reaches it."""
+    out = {}
+    digits = _divide_out(t, k, 256, 10 ** 9, 9, 9, 10)
+    out["private_key_decimal"] = None
+    if None in digits:
+        _count(t, Ops(add=1), 78)                    # '0' + digit
+    else:
+        out["private_key_decimal"] = bytes(48 + d for d in digits).lstrip(b"0") or b"0"
+    out["wif_uncompressed"] = _base58check_lane(t, k, wif_version, False, 51)
+    out["wif_compressed"] = _base58check_lane(t, k, wif_version, True, 52)
+    dc = [t.bswap(w) for w in hc]
+    du = [t.bswap(w) for w in hu]
+    out["address_p2pkh_compressed"] = _base58check_lane(t, dc, p2pkh_version, False, 34)
+    out["address_p2pkh_uncompressed"] = _base58check_lane(t, du, p2pkh_version, False, 34)
+    out["address_p2wpkh"] = _bech32_lane(t, dc, hrp)
+    if None in k:
+        # a count leading zeros, a population count, the prefix's select
+        # and the sums a word
+        _count(t, Ops(alu=3, add=2), 8)
+        return out, None
+    v = int.from_bytes(b"".join(w.to_bytes(4, "big") for w in k), "big")
+    return out, (v.bit_length(), bin(v).count("1"), (256 - v.bit_length()) // 4)
+
+
+def records() -> Ops:
+    """E1 per lane, its words the lane's (mainnet's constants)."""
+    t = Trace()
+    records_lane(t, [None] * 8, [None] * 5, [None] * 5)
+    return t.ops
 
 # --- the reverse sweeps (cores/sweep.py): a lane's keystream and compare;
 # a cascade's further keys only for the share of lanes that reach them,

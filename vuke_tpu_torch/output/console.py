@@ -22,6 +22,12 @@ class ConsoleOutput:
         self._lock = threading.Lock()
         self._close_on_flush = False
 
+    @property
+    def needs_records(self) -> bool:
+        """Whether generate hands this output whole records rather than
+        compact lines (``cores/records.emit_block``): in verbose mode."""
+        return self.verbose
+
     @classmethod
     def to_file(cls, path, verbose: bool = False) -> "ConsoleOutput":
         out = cls(open(path, "w"), verbose)

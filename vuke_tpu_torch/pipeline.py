@@ -20,8 +20,14 @@ bit-packed hit mask and ``[n_valid, count]`` (``Matcher``); a superbatch's
 (``StatsRing``).  In ``generate`` each slot ends in D2 (``cores/p2pkh.py``):
 the normalized keys, the address rows and the validity go to the host in
 copies that do not block (``HostCopy``), where ``format_lines`` writes the
-compact lines.  The driver keeps one superbatch in flight: it launches
-superbatch k + 1 of every transform before it reads k.  The mask crosses
+compact lines.  Where the output takes whole records (a ``StorageOutput``,
+a verbose console, any other handler: ``cores/records.needs_records``) each
+slot ends in E1 (``cores/records.py``) instead, and its rows go to the host
+with the keys and K4's affine x and y, as a ``RecordBlock`` a chunk; a
+console beside the storage gets the same lines, ``format_lines`` fed E1's
+P2PKH field in place of D2's rows.  The
+driver keeps one superbatch in flight: it launches superbatch k + 1 of
+every transform before it reads k.  The mask crosses
 to the host only on a hit batch, where each candidate is confirmed with
 ``derive.KeyDeriver`` against the target address strings.
 
@@ -48,14 +54,16 @@ import numpy as np
 import torch
 
 from ._device import MASK32, u32
-from .cores import p2pkh
+from . import encode
+from .cores import hash160, p2pkh
+from .cores import records as rec
 from .derive import DerivedKey, KeyDeriver
 from .ecc import inv
 from .ecc.incremental import (BaseStepper, offset_table, sequential_core, sequential_safe,
                               use_sequential)
-from .ecc.tiled import derive_tiled_from_words, use_smul13
+from .ecc.scalar import normalize_words
+from .ecc.tiled import affine_points, derive_tiled_from_words, use_smul13
 from .matcher import AddressType, MatchInfo, TargetPools
-from .output import ConsoleOutput
 from .transforms import TransformSpec, parse_transform
 
 DEFAULT_BATCH = 1 << 19
@@ -221,6 +229,18 @@ def derive_addresses(words: torch.Tensor, version: int, smul13: bool | None = No
     return d["norm"].T, p2pkh.batch_p2pkh(d["h160c"].T, version)
 
 
+def derive_records(words: torch.Tensor, network: encode.Network, smul13: bool | None = None):
+    """(8, N) uint32 key words -> (the normalized keys, K4's affine x and y,
+    each (8, N), and E1's record rows (N, ``records.ROW``)): normalize, K3
+    or K6, K4, K2, then E1 on K2's digests where they lie."""
+    if words.shape[1] % inv.CHUNK:
+        raise ValueError(f"batch {words.shape[1]} is not a multiple of {inv.CHUNK}")
+    norm = normalize_words(words)
+    x, y = affine_points(norm, smul13=smul13)
+    hc, hu, _, _ = hash160.hash160s_and_fragments(x, y)
+    return norm, x, y, rec.encode_records(norm, hc, hu, network)
+
+
 class ScanProgram:
     """One transform over superbatches of ``batch`` seeds, every slot.
 
@@ -230,17 +250,20 @@ class ScanProgram:
     superbatch); the keygen runs once a superbatch for all the other slots,
     and each of them takes its own derive and match.  Without pools
     (``generate``) every slot takes the keygen and the derive, then D2
-    under ``version``.  ``smul13`` picks K3 (True) or K6 (False) for the
-    derive and the table, once for the whole run; None reads the
-    environment (``ecc/tiled.use_smul13``)."""
+    under ``network``'s P2PKH version, or with ``records`` E1 under
+    ``network``.  ``smul13`` picks K3 (True) or K6 (False) for the derive
+    and the table, once for the whole run; None reads the environment
+    (``ecc/tiled.use_smul13``)."""
 
     def __init__(self, spec: TransformSpec, pools: Optional[TargetPools], batch: int, device,
-                 smul13: bool | None = None, version: int = 0):
+                 smul13: bool | None = None, network: encode.Network = encode.BITCOIN,
+                 records: bool = False):
         self.spec = spec
         self.batch = batch
         self.device = torch.device(device)
         self.smul13 = use_smul13(smul13)
-        self.version = version
+        self.network = network
+        self.records = records
         self.offsets = torch.arange(batch, dtype=torch.int64, device=self.device)
         self.generate = pools is None
         self.seq_slot = (spec.numeric.sequential_slot
@@ -256,7 +279,8 @@ class ScanProgram:
         count]`` of its slots on their way to the host, ``StatsRing.send``;
         each slot's packed hit mask); ``generate`` a ``HostCopy`` of, per
         slot, the normalized keys (8, N), the address rows (N, 35) and the
-        validity (N,)."""
+        validity (N,); with ``records``, the keys, x and y (8, N), E1's rows
+        (N, ``records.ROW``) and the validity."""
         nt = self.spec.numeric
         keys = valid = in_range = None
         masks, out = [], []
@@ -270,8 +294,13 @@ class ScanProgram:
                 # a host-only transform computes the lanes in range alone
                 keys, valid = nt.keygen(*seed_lattice(start, self.offsets), limit=limit)
                 in_range = self.offsets < limit
+            if self.generate and self.records:
+                norm, x, y, rows = derive_records(keys[s], self.network, self.smul13)
+                out += [_host_words(norm), _host_words(x), _host_words(y), rows,
+                        valid[s] & in_range]
+                continue
             if self.generate:
-                norm, rows = derive_addresses(keys[s], self.version, self.smul13)
+                norm, rows = derive_addresses(keys[s], self.network.p2pkh_version, self.smul13)
                 out += [_host_words(norm), rows, valid[s] & in_range]
                 continue
             d = derive_tiled_from_words(keys[s], smul13=self.smul13)
@@ -303,6 +332,18 @@ class ScanResult(ProcessStats):
 _HEX = np.frombuffer(b"0123456789abcdef", dtype=np.uint8)
 
 
+def source_rows(first: int, n: int, labels: Sequence[str]) -> np.ndarray:
+    """(n * S, 20 + label width) uint8: the sources ``{seed}{label}`` of the
+    seeds first .. first + n - 1, per seed every label, NUL-padded."""
+    lw = max(len(label.encode()) for label in labels)
+    out = np.zeros((n, len(labels), 20 + lw), dtype=np.uint8)
+    out[:, :, :20] = _decimal_columns(first, n)[:, None, :]
+    for s, label in enumerate(labels):
+        b = np.frombuffer(label.encode(), dtype=np.uint8)
+        out[:, s, 20:20 + len(b)] = b
+    return out.reshape(n * len(labels), -1)
+
+
 def _decimal_columns(first: int, n: int) -> np.ndarray:
     """(n, 20) uint8: the decimal strings of first .. first + n - 1 (u64),
     right-aligned, NULs in place of leading zeros."""
@@ -321,14 +362,16 @@ def format_lines(first: int, labels: Sequence[str], name: str, norm: np.ndarray,
                  rows: np.ndarray, valid: np.ndarray) -> str:
     """The compact lines ``{seed}{label},{name},{key hex},{address}`` of the
     seeds first .. first + n - 1, per seed every valid slot: ``norm`` (S, n,
-    8) uint32 BE key words, ``rows`` (S, n, 35) NUL-padded addresses,
-    ``valid`` (S, n) bool.  Each line is laid out in a fixed-width byte row,
-    NULs in the gaps, and the NULs dropped at the end."""
+    8) uint32 BE key words, ``rows`` (S, n, W) NUL-padded addresses (D2's
+    rows, or E1's P2PKH field), ``valid`` (S, n) bool.  Each line is laid
+    out in a fixed-width byte row, NULs in the gaps, and the NULs dropped at
+    the end."""
     S, n = valid.shape
     consts = [np.frombuffer(f"{label},{name},".encode(), dtype=np.uint8) for label in labels]
     cw = max(len(c) for c in consts)
     hx, ad = 20 + cw, 20 + cw + 65
-    width = ad + p2pkh.ROW + 1
+    aw = rows.shape[-1]
+    width = ad + aw + 1
     step = max(1, (1 << 17) // S)
     parts = []
     for a in range(0, n, step):
@@ -342,7 +385,7 @@ def format_lines(first: int, labels: Sequence[str], name: str, norm: np.ndarray,
         m[:, :, hx:hx + 64] = _HEX[np.stack([key >> 4, key & 15], axis=-1)].reshape(
             S, b - a, 64).transpose(1, 0, 2)
         m[:, :, hx + 64] = ord(",")
-        m[:, :, ad:ad + p2pkh.ROW] = rows[:, a:b].transpose(1, 0, 2)
+        m[:, :, ad:ad + aw] = rows[:, a:b].transpose(1, 0, 2)
         m[:, :, -1] = ord("\n")
         m[~valid[:, a:b].T] = 0
         parts.append(m[m != 0].tobytes())
@@ -351,10 +394,15 @@ def format_lines(first: int, labels: Sequence[str], name: str, norm: np.ndarray,
 
 def write_keys(output, deriver: KeyDeriver, name: str, sources: Sequence[str],
                norm: np.ndarray, addrs: Sequence[str]):
-    """One ``key_fast`` line a key: ``norm`` (M, 8) uint32 BE words; in
-    verbose mode each key is derived on the host (``_fast_emitter``)."""
+    """One ``key_fast`` line a key: ``norm`` (M, 8) uint32 BE words."""
     for source, words, addr in zip(sources, norm, addrs):
         output.key_fast(source, name, words.astype(">u4").tobytes(), addr, deriver=deriver)
+
+
+def write_lines(first: int, labels: Sequence[str], name: str, norm: np.ndarray,
+                rows: np.ndarray, valid: np.ndarray, output):
+    """``format_lines`` of the arguments to ``output.lines``."""
+    output.lines(format_lines(first, labels, name, norm, rows, valid))
 
 
 class ForwardDriver:
@@ -363,7 +411,9 @@ class ForwardDriver:
 
     With ``pools`` it scans: device-flagged candidates are confirmed on the
     host and written through ``output.hit``; with ``pools`` None it
-    generates, every valid key written as a compact line.  ``order_batch``
+    generates, every valid key written as a compact line, or, where the
+    output takes records (``records.needs_records``), as a ``RecordBlock``
+    of E1's rows a chunk (``records.emit_block``).  ``order_batch``
     (``batch`` when None) is the JAX package's superbatch for the same
     command line; output is written in its order (see the module's
     docstring).  ``batch`` must be a multiple of ``order_batch`` unless one
@@ -382,8 +432,9 @@ class ForwardDriver:
         self.output = output
         self.deriver = deriver or KeyDeriver()
         self.progress = progress
+        self.records = pools is None and rec.needs_records(output)
         self.programs = [ScanProgram(spec, pools, batch, device, smul13,
-                                     self.deriver.network.p2pkh_version)
+                                     self.deriver.network, self.records)
                          for spec in self.specs]
 
     def run_range(self, start: int, end: int) -> ScanResult:
@@ -454,9 +505,12 @@ class ForwardDriver:
     def _consume_keys(self, result: ScanResult, held: list, start: int, p: int,
                       spec: TransformSpec, bstart: int, n: int, launched):
         arrays = launched.arrays()
-        norm = np.stack([a[:, :n].view(np.uint32).T for a in arrays[0::3]])
-        rows = np.stack([a[:n] for a in arrays[1::3]])
-        valid = np.stack([a[:n] for a in arrays[2::3]])
+        k = 5 if self.records else 3
+        norm = np.stack([a[:, :n].view(np.uint32).T for a in arrays[0::k]])
+        rows = np.stack([a[:n] for a in arrays[k - 2::k]])
+        valid = np.stack([a[:n] for a in arrays[k - 1::k]])
+        points = ([np.stack([a[:, :n].view(np.uint32).T for a in arrays[j::k]]) for j in (1, 2)]
+                  if self.records else [None, None])
         result.inputs_processed += n
         result.keys_generated += int(np.count_nonzero(valid))
         ob = self.order_batch
@@ -465,20 +519,33 @@ class ForwardDriver:
             stop = min(bstart + n, start + ((first - start) // ob + 1) * ob)
             a, b = first - bstart, stop - bstart
             held.append((((first - start) // ob, p), functools.partial(
-                self._write_keys, spec, first, norm[:, a:b], rows[:, a:b], valid[:, a:b])))
+                self._write_keys, spec, first, norm[:, a:b], rows[:, a:b], valid[:, a:b],
+                *[None if q is None else q[:, a:b] for q in points])))
             first = stop
 
-    def _write_keys(self, spec: TransformSpec, first: int, norm, rows, valid):
+    def _write_keys(self, spec: TransformSpec, first: int, norm, rows, valid, x=None, y=None):
+        """A chunk's keys, (S, n, ...) arrays: compact lines from D2's rows,
+        or with ``records`` one ``RecordBlock`` in the order of the lines
+        (per seed, every valid slot), whose lines come from E1's P2PKH
+        field."""
         out = self.output
         if out is None:
             return
-        if isinstance(out, ConsoleOutput) and not out.verbose:
-            out.lines(format_lines(first, spec.numeric.slots, spec.name, norm, rows, valid))
+        slots = spec.numeric.slots
+        if not self.records:
+            write_lines(first, slots, spec.name, norm, rows, valid, out)
             return
-        lanes, slots = np.nonzero(valid.T)
-        write_keys(out, self.deriver, spec.name,
-                   [f"{first + int(i)}{spec.numeric.slots[s]}" for i, s in zip(lanes, slots)],
-                   norm[slots, lanes], p2pkh.addresses(rows[slots, lanes]))
+        order = valid.T.reshape(-1)                 # seed-major, slot-minor
+
+        def take(q):
+            return q.transpose(1, 0, 2).reshape(-1, q.shape[-1])[order]
+
+        off, width = rec.field_span("address_p2pkh_compressed")
+        lines = functools.partial(write_lines, first, slots, spec.name, norm,
+                                  rows[:, :, off:off + width], valid)
+        rec.emit_block(out, rec.RecordBlock(
+            spec.name, source_rows(first, valid.shape[1], slots)[order], take(norm), take(x),
+            take(y), take(rows), lines))
 
     def _confirm(self, spec: TransformSpec, seed: int, slot_i: int) -> Optional[Hit]:
         """Recompute the key of (seed, slot) with the plain keygen on a
@@ -635,12 +702,26 @@ class StringDriver:
         return stats
 
     def _emit_generate(self, spec: TransformSpec, strings, flat: np.ndarray, valid):
-        """One compact line a valid key: the derive and D2 on the device."""
-        norm, rows = derive_addresses(self._words(flat), self.deriver.network.p2pkh_version)
-        norm, rows = HostCopy([_host_words(norm.T.contiguous()), rows]).arrays()
+        """One compact line a valid key (the derive and D2 on the device),
+        or, where the output takes records, one ``RecordBlock`` of E1's
+        rows."""
         S = valid.shape[1]
         idx = np.nonzero(valid.reshape(-1))[0]
         st = spec.string
-        write_keys(self.output, self.deriver, spec.name,
-                   [f"{st.label(strings[i // S])}{st.slots[i % S]}" for i in idx],
+        sources = [f"{st.label(strings[i // S])}{st.slots[i % S]}" for i in idx]
+        if rec.needs_records(self.output):
+            norm, x, y, rows = derive_records(self._words(flat), self.deriver.network)
+            norm, x, y, rows = HostCopy([_host_words(t.T.contiguous()) for t in (norm, x, y)]
+                                        + [rows]).arrays()
+            words = [t.view(np.uint32)[idx] for t in (norm, x, y)]
+            off, width = rec.field_span("address_p2pkh_compressed")
+            lines = functools.partial(write_keys, deriver=self.deriver, name=spec.name,
+                                      sources=sources, norm=words[0],
+                                      addrs=rec.texts(rows[idx, off:off + width]))
+            rec.emit_block(self.output, rec.RecordBlock(spec.name, sources, *words, rows[idx],
+                                                        lines))
+            return
+        norm, rows = derive_addresses(self._words(flat), self.deriver.network.p2pkh_version)
+        norm, rows = HostCopy([_host_words(norm.T.contiguous()), rows]).arrays()
+        write_keys(self.output, self.deriver, spec.name, sources,
                    norm.view(np.uint32)[idx], p2pkh.addresses(rows[idx]))
