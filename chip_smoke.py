@@ -1,6 +1,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # every phase
+    python3 chip_smoke.py --phases 7b,10a   # phases 1, 2 and the named ones
+
+The tags of ``--phases`` are the numbers below (3a the field self-test, 3b
+K1-K6 and 3c the keygens against their plain versions, 6s the scan rates;
+``PHASES`` lists them).  A selection runs the environment, the build, the
+named phases and the kernels line over the kernels they held against
+their plain versions and timed (3b and 6 for K1-K6), each of which must
+have been launched on a main-path run of those phases.
 
 Drives vuke_tpu_torch's scan paths on the card, the milksad seed ->
 hash160 -> target match (K1 with normalize in its epilogue -> K3 -> K4 ->
@@ -16,10 +24,11 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
 1. environment: torch / CUDA / nvcc versions, capability (9, 0), the
    card's name, power limit and maximum SM clock;
 2. build: one nvcc per csrc/*.cu, all at once (time, and each kernel's
-   registers, stack and spill bytes from ``-Xptxas -v``); then each
-   kernel's issued instructions per thread on the ALU and FMA pipes from
-   its SASS (``kernels/sass.py``), weighted by its loops' trip counts
-   (``LOOP_TRIPS``), printed beside the operations its function needs;
+   registers, stack and spill bytes from ``-Xptxas -v``); then the issued
+   instructions per thread of K1-K6, D2 and E1 (E1: its code once, a
+   role-0 and a base58check thread's) on the ALU and FMA pipes from their SASS
+   (``kernels/sass.py``), weighted by their loops' trip counts
+   (``LOOP_TRIPS``), printed beside the operations the function needs;
 3. the field library's self-test (``csrc/fe_selftest.cu``: fe_mul, fe_sqr,
    fe_inv, fe_canon, fe_add, fe_sub) against Python integers on every pair
    of adversarial operands and 16384 random pairs; then each kernel against
@@ -82,9 +91,11 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    edges and UTF-8 text included) and its chain mode at depth 10, against
    its plain version and hashlib on every lane; its time on 2^19 strings
    of 1 to 64 bytes, and hashlib's on the host;
-   7b. D2 on 2^19 random and edge hash160s (all zeros, all 0xff) for the
+   7b. D2 on 2^19 random and edge hash160s (all zeros, all 0xff, 8 zero
+   bytes first) and at the tail sizes 1, 255, 257 and 1869 for the
    versions 0x00 and 0x6F against its plain version on every row and
-   ``encode.p2pkh_address`` on 4096;
+   ``encode.p2pkh_address`` on 4096; ``generate`` sha256 over 4096 seeds
+   (D2 on the main path) against the host;
    7c. ``generate --transform sha256 --transform md5`` over 70,000 seeds
    without ``--batch``: the line count, the JAX package's order (65536-seed
    chunks, then transform, seed, slot), 4096 sampled lines against the
@@ -98,6 +109,9 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    7e. ``timestamps --microseconds`` over one day (86,486,400 seeds) with
    a hit planted in the millisecond lattice; stdin and files scans in
    subprocesses;
+   7f. the JAX command's ``bench`` through the command line: sha256 (its
+   three lines) and electrum (``--json``: 1000 decimal strings a call, W2
+   behind it), one second each after the warm-up;
 8. ``analyze`` on the card, with S1 (``csrc/sweep_prng.cu``, the PRNG
    families' keystream and compare fused) and S2 (``csrc/sweep_chain.cu``,
    the sha256 chains'):
@@ -141,9 +155,10 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    ``KeyDeriver``;
 10. the storage tail, with E1 (``csrc/records.cu``, a record's string
    columns: decimal, WIFs, P2PKH, P2WPKH, statistics):
-   10a. E1 against ``records_plain`` on the card at 2^19 lanes on bitcoin,
-   testnet, signet and regtest, lane-exact, the edge keys (1, 2, 9,
-   10^9 - 1, 10^9, 2^32, 2^255, n - 1, 1..31 leading zero bytes) and
+   10a. E1 against ``records_plain`` on the card at 2^19 lanes and at the
+   tail sizes 1, 255, 257 and 1869 on bitcoin, testnet, signet and
+   regtest, lane-exact, the edge keys (1, 2, 9, 10^9 - 1, 10^9, 2^32,
+   2^255, n - 1, 2^256 - 1 - n, 1..31 leading zero bytes) and
    digests with leading zero bytes among them, the edge keys also against
    ``KeyDeriver``; 256 lanes a network of ``pipeline.derive_records``
    against ``KeyDeriver.derive``; E1's time, bound and share; ``generate
@@ -170,6 +185,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -287,6 +303,11 @@ LOOP_TRIPS = {
     # 16 lanes forward and back; then fe_inv (a call), its squaring runs of
     # 2 or more
     "inv_affine_kernel": [[16, 16], [3, 3, 2, 11, 22, 44, 88, 44, 3, 23, 5, 3, 2]],
+    # every loop unrolled; D2's count is a lane's, E1's the function's code
+    # once: a role-0 thread's and one base58check thread's (the checksum
+    # once, the WIF's and the address's digits)
+    "p2pkh_kernel": [[]],
+    "records_kernel": [[]],
 }
 TABLE_BYTES = {"smul": smul.WINDOWS * smul.TSIZE * 64,
                "smul_w8": smul_w8.WINDOWS * smul_w8.TSIZE * 64}
@@ -548,9 +569,10 @@ def phase_build(card: str) -> dict:
         parts.append(f"{name}: {regs} regs, stack {stack} B, spills {spill} B")
     summary = ", ".join(parts)
     say(f"[2 build] nvcc (one per source, in parallel) built {lib.path.name} in {lib.build_seconds:.1f} s [{card}]; {summary}")
+    counted = KERNELS | RECORD_KERNELS | {"p2pkh": p2pkh.KERNEL}
     counts = sass.kernel_pipes(sass.dump(lib.path),
-                               {k.entry: LOOP_TRIPS[k.entry] for k in KERNELS.values()})
-    pipes = {name: counts[k.entry] for name, k in KERNELS.items()}
+                               {k.entry: LOOP_TRIPS[k.entry] for k in counted.values()})
+    pipes = {name: counts[k.entry] for name, k in counted.items()}
     say("[2 sass] per thread, weighted by loop trips (LOOP_TRIPS): " + "; ".join(
         f"{name}: ALU {p.alu:.0f}, FMA {p.fma:.0f} (2-cycle units), issued {p.issued:.0f}"
         for name, p in pipes.items()))
@@ -1525,14 +1547,26 @@ def bound_of(nbytes: float, ops: work.Ops, n: int, int_ops_per_s: float):
     return t_ops * 1e3, "operations", ops.pipe()
 
 
-def phase_p2pkh(dev, rng, card: str, int_ops_per_s: float):
-    """7b: D2 against its plain version on every row and
-    ``encode.p2pkh_address`` on 4096, for 0x00 and 0x6F; its time."""
+TAILS = (1, 255, 257, 1869)      # beside BATCH: below, around and off the kernels' tiles
+
+
+def phase_p2pkh(dev, rng, card: str, int_ops_per_s: float, pipes: dict):
+    """7b: D2 against its plain version on every row at 2^19 lanes and at
+    the tail sizes (1, 255, 257, 1869: D2's tile is 256 rows), and
+    ``encode.p2pkh_address`` on 4096, for 0x00 and 0x6F; a short
+    ``generate`` through the command line (D2 on the main path); its time."""
     h = p2pkh_digests(rng, BATCH)
     hd = h.to(dev)
     plain_ms = None
     for net in (encode.BITCOIN, encode.TESTNET):
         v = net.p2pkh_version
+        for n in TAILS:
+            got = launched_once(p2pkh.KERNEL, lambda: p2pkh.batch_p2pkh(hd[:, :n].contiguous(), v))
+            want = p2pkh.batch_p2pkh_plain(h[:, :n].contiguous(), v)
+            if not torch.equal(got.cpu(), want):
+                bad = (got.cpu() != want).any(dim=1).nonzero().flatten().tolist()
+                raise AssertionError(f"D2 version {v:#x} at n = {n}: {len(bad)} rows differ: "
+                                     f"{bad[:8]}")
         rows = launched_once(p2pkh.KERNEL, lambda: p2pkh.batch_p2pkh(hd, v)).cpu()
         t0 = time.perf_counter()
         want = p2pkh.batch_p2pkh_plain(h, v)
@@ -1546,17 +1580,33 @@ def phase_p2pkh(dev, rng, card: str, int_ops_per_s: float):
                                         replace=False).tolist():
             if addrs[j] != p2pkh_address(hb[20 * j:20 * j + 20], net):
                 raise AssertionError(f"D2 version {v:#x} row {j} differs from p2pkh_address")
+    start = 10 ** 11 + int(rng.integers(0, 1 << 20))
+    rc, text, log, launches, secs = run_cli(
+        ["generate", "--transform", "sha256", "range", "--start", str(start), "--end",
+         str(start + 4095)])
+    lines = text.splitlines()
+    if rc != 0 or len(lines) != 3 * 4096:
+        raise AssertionError(f"7b generate: rc {rc}, {len(lines)} lines, stderr {log!r}")
+    check_launches("7b generate", launches, {"p2pkh": 3, "keygen_hash": 1, "records": 0})
+    for i in rng.choice(len(lines), 256, replace=False).tolist():
+        seed = int(lines[i].split(",")[0])
+        if host_line(lines[i], host_hash_keys("sha256", seed)[i % 3]) != lines[i]:
+            raise AssertionError(f"7b generate: line {i} differs from the host: {lines[i]}")
     ms = time_cuda(lambda: p2pkh.batch_p2pkh(hd, 0), iters=20, warmup=3)
     dev_ms = launch_device_ms(lambda: p2pkh.batch_p2pkh(hd, 0), p2pkh.KERNEL)
     ops = work.p2pkh()
     bound_ms, bound_by, limit = bound_of(55 * BATCH, ops, BATCH, int_ops_per_s)
+    sass_p = pipes["p2pkh"]
     say(f"[7b D2 p2pkh] {BATCH} hash160s (all zeros, all 0xff, 8 zero bytes, random), versions "
-        f"0x00 and 0x6f: kernel == plain byte-exact on every row, 4096 rows == "
-        f"encode.p2pkh_address; kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms device "
-        f"(profiler), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {limit} "
-        f"({100 * bound_ms / dev_ms:.1f}% of the device time; needs a lane {ops.mul:.0f} "
-        f"multiplies, {ops.alu:.0f} ALU, {ops.add:.0f} adds) [{card}]")
-    return 0, (ms, plain_ms, bound_ms, bound_by)
+        f"0x00 and 0x6f: kernel == plain byte-exact on every row, and at n = "
+        f"{', '.join(map(str, TAILS))}; 4096 rows == encode.p2pkh_address; generate sha256 "
+        f"over 4096 seeds: D2 3 times, 256 sampled lines == host KeyDeriver; kernel {ms:.4f} "
+        f"ms (CUDA events), {dev_ms:.4f} ms device (profiler), plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms by {limit} ({100 * bound_ms / dev_ms:.1f}% of the device time; "
+        f"needs a lane {ops.mul:.0f} multiplies, {ops.alu:.0f} ALU, {ops.add:.0f} adds; SASS "
+        f"issues a lane {sass_p.alu:.0f} ALU, {sass_p.fma:.0f} FMA 2-cycle units, "
+        f"{sass_p.issued:.0f} in all) [{card}]")
+    return 0, (ms, plain_ms, bound_ms, bound_by), launches
 
 
 def run_cli(argv, stdin=None):
@@ -1634,6 +1684,34 @@ def phase_generate(dev, rng, card: str) -> dict:
         f"{d['device_idle_share_per_superbatch']:.3f}, {d['launches_per_superbatch']:g} "
         f"launches ({d['glue_launches_per_superbatch']:g} torch glue); device ms: {kern} [{card}]")
     return launches
+
+
+def phase_bench(card: str) -> list:
+    """7f: the JAX command's ``bench`` on the card: sha256 (the keygen
+    kernel, 65536 seeds a call) with its three lines, and electrum (a
+    string-only transform: 1000 decimal strings a call, W2 and K3 -> K4
+    behind it) with ``--json``; each after its 2 s warm-up, over 1 s."""
+    three = re.compile(r"Benchmark: sha256\n  \d+\.\d\d M inputs/sec \(\d+\.\d\d M keys/sec\)\n"
+                       r"  batch=65536 iters=\d+ elapsed=\d+\.\d\ds\n")
+    rc, lines, log, sha, secs = run_cli(["bench", "--seconds", "1"])
+    if rc != 0 or not three.fullmatch(lines):
+        raise AssertionError(f"bench: rc {rc}, stdout {lines!r}, stderr {log!r}")
+    check_launches("bench sha256", sha, {"keygen_hash": None})
+    rc, text, log, elec, secs_e = run_cli(["bench", "--transform", "electrum", "--batch", "1000",
+                                           "--seconds", "1", "--json"])
+    r = json.loads(text)
+    if (rc != 0 or list(r) != ["transform", "inputs_per_sec", "keys_per_sec", "batch",
+                               "iterations", "elapsed_secs"]
+            or r["batch"] != 1000 or r["keys_per_sec"] != 20 * r["inputs_per_sec"]):
+        raise AssertionError(f"bench electrum: rc {rc}, stdout {text!r}, stderr {log!r}")
+    check_launches("bench electrum", elec, {"electrum_stretch": None, "smul": None,
+                                            "inv_affine": None})
+    say(f"[7f bench] `bench --seconds 1`: {' / '.join(lines.splitlines()[1:])}, the keygen "
+        f"launched {sha['keygen_hash']} times in {secs:.1f} s; `bench --transform electrum "
+        f"--batch 1000 --seconds 1 --json`: {r['inputs_per_sec']:.0f} seeds/s, "
+        f"{r['iterations']} calls in the best window, W2 launched {elec['electrum_stretch']} "
+        f"times in {secs_e:.1f} s [{card}]")
+    return [sha, elec]
 
 
 def write_targets(name: str, targets: list, decoys: list):
@@ -2502,8 +2580,8 @@ def phase_long_cascade(card: str) -> dict:
 
 def record_edge_keys(rng) -> list:
     """Normalized keys at E1's edges: 1, 2, 9, 10^9 - 1, 10^9, 2^32, 2^255,
-    n - 1, and keys with 1 to 31 leading zero bytes."""
-    keys = [1, 2, 9, 10 ** 9 - 1, 10 ** 9, 1 << 32, 1 << 255, N - 1]
+    n - 1, 2^256 - 1 - n, and keys with 1 to 31 leading zero bytes."""
+    keys = [1, 2, 9, 10 ** 9 - 1, 10 ** 9, 1 << 32, 1 << 255, N - 1, (1 << 256) - 1 - N]
     return keys + [int.from_bytes(b"\0" * z + b"\x01" + rng.bytes(31 - z), "big")
                    for z in range(1, 32)]
 
@@ -2541,9 +2619,10 @@ def derived_strings(d) -> dict:
             "stats": (d.bit_length, d.hamming_weight, d.leading_zeros)}
 
 
-def phase_records(dev, rng, card: str, int_ops_per_s: float):
+def phase_records(dev, rng, card: str, int_ops_per_s: float, pipes: dict):
     """10a: E1 against ``records_plain`` on the card at the generate path's
-    batch on every network, lane-exact, the edge keys and digests among
+    batch and at the tail sizes (1, 255, 257, 1869: E1's tile is 64
+    records) on every network, lane-exact, the edge keys and digests among
     the lanes; 256 lanes of the derive path (``pipeline.derive_records``)
     against ``KeyDeriver.derive`` on each network; E1's time, bound and
     share; then ``generate -v`` (E1 on the path without pyarrow) against
@@ -2552,6 +2631,12 @@ def phase_records(dev, rng, card: str, int_ops_per_s: float):
     kd, hcd, hud = k.to(dev), hc.to(dev), hu.to(dev)
     plain_ms = None
     for net in encode.NETWORKS.values():
+        for n in TAILS:
+            part = [t[:, :n].contiguous() for t in (kd, hcd, hud)]
+            got = launched_once(records.KERNEL, lambda: records.encode_records(*part, net))
+            if not torch.equal(got, records.records_plain(*part, net)):
+                raise AssertionError(f"E1 {net.name} at n = {n}: rows differ from "
+                                     f"records_plain")
         got = launched_once(records.KERNEL, lambda: records.encode_records(kd, hcd, hud, net))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2592,21 +2677,24 @@ def phase_records(dev, rng, card: str, int_ops_per_s: float):
             raise AssertionError(f"E1 {net.name}: derive_records lanes {bad[:8]} differ from "
                                  f"KeyDeriver.derive")
     say(f"[10a E1 records] {BATCH} lanes (the edge keys 1, 2, 9, 10^9 - 1, 10^9, 2^32, 2^255, "
-        f"n - 1 and 1..31 leading zero bytes; digests with 20, 8, 2, 1 leading zero bytes) on "
-        f"bitcoin, testnet, signet, regtest: kernel == records_plain byte-exact on every row "
-        f"(max abs err 0), the edge keys' decimal, WIFs and statistics == KeyDeriver; 256 "
-        f"lanes a network of derive_records (K3 -> K4 -> K2 -> E1) == KeyDeriver.derive "
-        f"string for string; D2 after the move to base58.cuh: 7b (lane-exact) [{card}]")
+        f"n - 1, 2^256 - 1 - n and 1..31 leading zero bytes; digests with 20, 8, 2, 1 leading "
+        f"zero bytes) on bitcoin, testnet, signet, regtest: kernel == records_plain "
+        f"byte-exact on every row (max abs err 0), and at n = {', '.join(map(str, TAILS))}; "
+        f"the edge keys' decimal, WIFs and statistics == KeyDeriver; 256 lanes a network of "
+        f"derive_records (K3 -> K4 -> K2 -> E1) == KeyDeriver.derive string for string [{card}]")
     ms = time_cuda(lambda: records.encode_records(kd, hcd, hud), iters=20, warmup=3)
     dev_ms = launch_device_ms(lambda: records.encode_records(kd, hcd, hud), records.KERNEL)
     ops = work.records()
     nbytes = (32 + 20 + 20 + records.ROW) * BATCH
     bound_ms, bound_by, limit = bound_of(nbytes, ops, BATCH, int_ops_per_s)
+    sass_p = pipes["records"]
     say(f"[10a E1 time] {BATCH} lanes: kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms device "
         f"(profiler), plain {plain_ms:.1f} ms (torch ops on the card), bound {bound_ms:.4f} ms "
         f"by {limit} ({100 * bound_ms / dev_ms:.1f}% of the device time; needs a lane "
         f"{ops.mul:.0f} multiplies, {ops.alu:.0f} ALU, {ops.add:.0f} adds; {nbytes / BATCH:.0f} "
-        f"B) [{card}]")
+        f"B; SASS, the function's code once (role 0, one base58check thread): "
+        f"{sass_p.alu:.0f} ALU, {sass_p.fma:.0f} FMA 2-cycle units, {sass_p.issued:.0f} in "
+        f"all) [{card}]")
     start = 10 ** 9 + int(rng.integers(0, 1 << 20))
     rc, text, log, launches, secs = run_cli(
         ["generate", "-v", "--transform", "md5", "--network", "testnet", "range", "--start",
@@ -2823,49 +2911,145 @@ def phase_storage_tail(dev, rng, card: str) -> list:
     return phase_storage(dev, rng, card)
 
 
-def main() -> int:
-    dev, card, int_ops_per_s = phase_environment()
-    rng = np.random.default_rng(20261016)
-    pipes = phase_build(card)
-    phase_field(dev, rng)
-    errs = phase_kernels(dev, rng)
-    errs |= phase_keygen(dev, rng)
-    phase_derive(dev, rng)
-    phase_seq_derive(dev, rng)
-    phase_derive_k6(dev, rng)
-    phase_pubkey(dev, rng)
-    decoys = [p2pkh_address(rng.bytes(20)) for _ in range(4096)]
-    runs = ([phase_scan(dev, rng, decoys)] + phase_seq_scan(dev, rng, decoys)
-            + phase_scan_k6(dev, rng, decoys) + phase_keygen_scans(dev, rng, decoys)
-            + [phase_sequential_off(dev, rng, decoys)])
-    times = phase_rate(dev, rng, card, int_ops_per_s, pipes)
-    phase_scan_rates(card)
-    errs["digest"], times["digest"] = phase_digest(dev, rng, card, int_ops_per_s)
-    errs["p2pkh"], times["p2pkh"] = phase_p2pkh(dev, rng, card, int_ops_per_s)
-    runs += ([phase_generate(dev, rng, card)] + phase_wordlist(dev, rng, card, decoys)
-             + [phase_timestamps(dev, rng, card, decoys)])
-    sweep_errs, sweep_times = phase_sweep_kernels(dev, rng, card, int_ops_per_s)
-    errs |= sweep_errs
-    times |= sweep_times
-    runs += (phase_analyze(dev, rng, card) + [phase_long_cascade(card)]
-             + [phase_provider_scan(card)])
-    errs["pbkdf2_sha512"], times["pbkdf2_sha512"] = phase_w1(dev, rng, card, int_ops_per_s)
-    errs["electrum_stretch"], times["electrum_stretch"] = phase_w2(dev, rng, card,
-                                                                   int_ops_per_s)
-    runs += ([phase_electrum_scan(dev, rng, card, decoys), phase_multibit(dev, rng, card)]
-             + phase_wallet_scans(dev, rng, card, decoys))
-    errs["records"], times["records"], verbose = phase_records(dev, rng, card, int_ops_per_s)
-    runs += [verbose] + phase_storage_tail(dev, rng, card)
+class Run:
+    """What the phases share and fill in: the card, the build's SASS counts,
+    each kernel's max abs error against its plain version and its times
+    (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``), and the launch counts
+    of every main-path run."""
+
+    def __init__(self, dev, card: str, int_ops_per_s: float, pipes: dict):
+        self.dev, self.card, self.int_ops_per_s, self.pipes = dev, card, int_ops_per_s, pipes
+        self.rng = np.random.default_rng(20261016)
+        self.errs, self.times, self.runs = {}, {}, []
+        self._decoys = None
+
+    @property
+    def decoys(self) -> list:
+        """4096 random P2PKH addresses, made once, when a phase first asks."""
+        if self._decoys is None:
+            self._decoys = [p2pkh_address(self.rng.bytes(20)) for _ in range(4096)]
+        return self._decoys
+
+    def kernel(self, name: str, result):
+        """Record a kernel phase's (max abs err, times)."""
+        self.errs[name], self.times[name] = result
+
+
+def run_records(r: Run):
+    err, times, verbose = phase_records(r.dev, r.rng, r.card, r.int_ops_per_s, r.pipes)
+    r.kernel("records", (err, times))
+    r.runs.append(verbose)
+
+
+def run_p2pkh(r: Run):
+    err, times, launches = phase_p2pkh(r.dev, r.rng, r.card, r.int_ops_per_s, r.pipes)
+    r.kernel("p2pkh", (err, times))
+    r.runs.append(launches)
+
+
+def run_sweeps(r: Run):
+    errs, times = phase_sweep_kernels(r.dev, r.rng, r.card, r.int_ops_per_s)
+    r.errs |= errs
+    r.times |= times
+
+
+# (tag, what, step) in the run's order; the tags are the phase numbers of
+# the module's docstring
+PHASES = (
+    ("3a", "field self-test", lambda r: phase_field(r.dev, r.rng)),
+    ("3b", "K1-K6 against plain", lambda r: r.errs.update(phase_kernels(r.dev, r.rng))),
+    ("3c", "keygens against plain", lambda r: r.errs.update(phase_keygen(r.dev, r.rng))),
+    ("4", "milksad derive", lambda r: phase_derive(r.dev, r.rng)),
+    ("4b", "sequential derive", lambda r: phase_seq_derive(r.dev, r.rng)),
+    ("4c", "K6 derive", lambda r: phase_derive_k6(r.dev, r.rng)),
+    ("4d", "lane-major derive", lambda r: phase_pubkey(r.dev, r.rng)),
+    ("5", "milksad scan", lambda r: r.runs.append(phase_scan(r.dev, r.rng, r.decoys))),
+    ("5b", "direct:be scans", lambda r: r.runs.extend(phase_seq_scan(r.dev, r.rng, r.decoys))),
+    ("5c", "K6 scans", lambda r: r.runs.extend(phase_scan_k6(r.dev, r.rng, r.decoys))),
+    ("5d", "keygen scans", lambda r: r.runs.extend(phase_keygen_scans(r.dev, r.rng, r.decoys))),
+    ("5e", "sequential off", lambda r: r.runs.append(phase_sequential_off(r.dev, r.rng,
+                                                                          r.decoys))),
+    ("6", "rates and kernel times", lambda r: r.times.update(
+        phase_rate(r.dev, r.rng, r.card, r.int_ops_per_s, r.pipes))),
+    ("6s", "scan rates", lambda r: phase_scan_rates(r.card)),
+    ("7a", "D1", lambda r: r.kernel("digest", phase_digest(r.dev, r.rng, r.card,
+                                                           r.int_ops_per_s))),
+    ("7b", "D2", run_p2pkh),
+    ("7c", "generate", lambda r: r.runs.append(phase_generate(r.dev, r.rng, r.card))),
+    ("7d", "wordlist scans", lambda r: r.runs.extend(phase_wordlist(r.dev, r.rng, r.card,
+                                                                    r.decoys))),
+    ("7e", "timestamps, stdin, files", lambda r: r.runs.append(
+        phase_timestamps(r.dev, r.rng, r.card, r.decoys))),
+    ("7f", "bench", lambda r: r.runs.extend(phase_bench(r.card))),
+    ("8a", "S1, S2", run_sweeps),
+    ("8b", "analyze", lambda r: r.runs.extend(phase_analyze(r.dev, r.rng, r.card)
+                                              + [phase_long_cascade(r.card)])),
+    ("8c", "provider scan", lambda r: r.runs.append(phase_provider_scan(r.card))),
+    ("9a", "W1", lambda r: r.kernel("pbkdf2_sha512", phase_w1(r.dev, r.rng, r.card,
+                                                              r.int_ops_per_s))),
+    ("9b", "W2", lambda r: r.kernel("electrum_stretch", phase_w2(r.dev, r.rng, r.card,
+                                                                 r.int_ops_per_s))),
+    ("9c", "electrum scan", lambda r: r.runs.append(phase_electrum_scan(r.dev, r.rng, r.card,
+                                                                        r.decoys))),
+    ("9d", "multibit-hd", lambda r: r.runs.append(phase_multibit(r.dev, r.rng, r.card))),
+    ("9e", "wallet scans", lambda r: r.runs.extend(phase_wallet_scans(r.dev, r.rng, r.card,
+                                                                      r.decoys))),
+    ("10a", "E1", run_records),
+    ("10b", "storage tail", lambda r: r.runs.extend(phase_storage_tail(r.dev, r.rng, r.card))),
+)
+
+
+def parse_phases(argv) -> list:
+    """The tags ``--phases A,B,...`` names, in the run's order; every phase
+    without it."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py")
+    p.add_argument("--phases", default=None,
+                   help="comma-separated phase tags (e.g. 7b,10a): run the environment, the "
+                        "build, these phases and the kernels line over their kernels")
+    args = p.parse_args(argv)
+    tags = [tag for tag, _, _ in PHASES]
+    if args.phases is None:
+        return tags
+    want = [t.strip() for t in args.phases.split(",") if t.strip()]
+    unknown = sorted(set(want) - set(tags))
+    if unknown or not want:
+        p.error(f"unknown phases {unknown}; one or more of {', '.join(tags)}")
+    return [t for t in tags if t in want]
+
+
+def kernels_line(r: Run, every: bool) -> dict:
+    """The per-kernel summary over the kernels the run held against their
+    plain versions and timed: each must have been launched on a main-path
+    run of these phases, and with ``every`` (the whole run) every kernel of
+    the port must be there."""
+    names = [name for name in ALL_KERNELS if name in r.times and name in r.errs]
+    if every and names != list(ALL_KERNELS):
+        raise AssertionError(f"no times for {sorted(set(ALL_KERNELS) - set(names))}")
     summary = {"kernels": [
-        {"name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
-         "launches": sum(run[name] for run in runs), "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
-         "bound_by": times[name][3], "library_ms": None}
-        for name, k in ALL_KERNELS.items()]}
+        {"name": name, "route": ALL_KERNELS[name].route, "source": ALL_KERNELS[name].source,
+         "replaces": ALL_KERNELS[name].replaces,
+         "launches": sum(run[name] for run in r.runs), "max_abs_err": r.errs[name],
+         "ms": r.times[name][0], "plain_ms": r.times[name][1], "bound_ms": r.times[name][2],
+         "bound_by": r.times[name][3], "library_ms": None}
+        for name in names]}
     for row in summary["kernels"]:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was launched no time on the main path")
-    say(json.dumps(summary))
+    return summary
+
+
+def main(argv=None) -> int:
+    tags = parse_phases(sys.argv[1:] if argv is None else argv)
+    dev, card, int_ops_per_s = phase_environment()
+    r = Run(dev, card, int_ops_per_s, phase_build(card))
+    for tag, what, step in PHASES:
+        if tag in tags:
+            t0 = time.perf_counter()
+            step(r)
+            say(f"[phase {tag}] {what}: passed in {time.perf_counter() - t0:.1f} s")
+    say(json.dumps(kernels_line(r, every=len(tags) == len(PHASES))))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

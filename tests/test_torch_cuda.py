@@ -290,6 +290,33 @@ def test_p2pkh_kernel_matches_plain(dev, version):
     assert torch.equal(got.cpu(), p2pkh.batch_p2pkh_plain(h, version))
 
 
+@pytest.mark.parametrize("n", chip_smoke.TAILS + (1 << 19,))
+@pytest.mark.parametrize("version", [0x00, 0x6F])
+def test_p2pkh_kernel_tails(dev, version, n):
+    """D2 at sizes below, around and off its 256-row tile and at the main
+    path's 2^19 (the edge digests first), byte for byte; nothing is
+    written past the last row."""
+    from vuke_tpu_torch.cores import p2pkh
+
+    h = chip_smoke.p2pkh_digests(np.random.default_rng(n), max(n, 3))[:, :n].contiguous()
+    got = p2pkh.batch_p2pkh(h.to(dev), version)
+    assert torch.equal(got.cpu(), p2pkh.batch_p2pkh_plain(h, version))
+    pad = torch.full((n * p2pkh.ROW + 64,), 0xAA, dtype=torch.uint8, device=dev)
+    p2pkh.KERNEL.launch(dev, h.to(dev).data_ptr(), version, pad.data_ptr(), n)
+    assert torch.equal(pad[:n * p2pkh.ROW].view(n, p2pkh.ROW), got)
+    assert bool((pad[n * p2pkh.ROW:] == 0xAA).all())
+
+
+def test_p2pkh_launch_refuses_an_unaligned_output(dev):
+    """D2 stores 16-byte vectors: an output off 16 bytes is refused."""
+    from vuke_tpu_torch.cores import p2pkh
+
+    h = torch.zeros((5, 32), dtype=torch.uint32, device=dev)
+    rows = torch.empty(32 * p2pkh.ROW + 16, dtype=torch.uint8, device=dev)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        p2pkh.KERNEL.launch(dev, h.data_ptr(), 0, rows.data_ptr() + 1, 32)
+
+
 def test_sweep_kernels_match_plain(dev):
     """S1 (every family, variant and mode) and S2 (every variant and mode at
     depth 10) against their plain versions on the card, 4096 lanes across
@@ -343,6 +370,28 @@ def test_records_kernel_matches_plain(dev, network):
     assert records.KERNEL.launches == before + 1
     assert torch.equal(got, records.records_plain(kd, hcd, hud, net))
     assert torch.equal(got.cpu(), records.records_plain(k, hc, hu, net))
+
+
+@pytest.mark.parametrize("n", chip_smoke.TAILS + (1 << 19,))
+@pytest.mark.parametrize("network", ["bitcoin", "testnet", "signet", "regtest"])
+def test_records_kernel_tails(dev, network, n):
+    """E1 at sizes below, around and off its 64-record tile and at the main
+    path's 2^19 (the edge keys 1, n - 1, 2^256 - 1 - n, keys with leading
+    zero bytes and digests with leading zero bytes first), byte for byte;
+    nothing is written past the last row."""
+    from vuke_tpu_torch import encode
+    from vuke_tpu_torch.cores import records
+
+    k, hc, hu, _ = chip_smoke.record_inputs(np.random.default_rng(n), max(n, 128))
+    kd, hcd, hud = (t[:, :n].contiguous().to(dev) for t in (k, hc, hu))
+    net = encode.NETWORKS[network]
+    got = records.encode_records(kd, hcd, hud, net)
+    assert torch.equal(got, records.records_plain(kd, hcd, hud, net))
+    pad = torch.full((n * records.ROW + 64,), 0xAA, dtype=torch.uint8, device=dev)
+    records.KERNEL.launch(dev, kd.data_ptr(), hcd.data_ptr(), hud.data_ptr(),
+                          *records.network_params(net), pad.data_ptr(), n)
+    assert torch.equal(pad[:n * records.ROW].view(n, records.ROW), got)
+    assert bool((pad[n * records.ROW:] == 0xAA).all())
 
 
 def test_derive_records_matches_the_host(dev):

@@ -13,8 +13,8 @@
 Both are timed with CUDA events after a warm-up, each measured window
 fenced by ``torch.cuda.synchronize()``, best of 3 windows.  Beside them:
 
-- ``bench_transform``, port of ``vuke_tpu.benchmark.bench_transform``: the
-  keygen-only rate of one transform (inputs/s and keys/s), the same way;
+- ``bench_keygen``: the keygen-only rate of one numeric transform
+  (inputs/s and keys/s), the same way;
 - ``bench_scan``: keys/s of a whole scan through the pipelined driver
   (``pipeline.ForwardDriver``) on the host's clock, against a pool of
   random fragments, with where its time goes (``_profile``'s fields per
@@ -37,6 +37,11 @@ say where a batch's time goes (``torch.profiler``); ``kernel_cases`` holds
 each kernel and its plain version at the derive's shapes, for timing them
 alone.  They run only on a CUDA device: a measurement never falls back to
 the CPU.
+
+``run_benchmark`` and ``bench_transform`` are the JAX command's ``bench``
+(``vuke_tpu/benchmark.py``): a transform's inputs/s and keys/s over whole
+calls after a 2 s warm-up, best of 5 windows, on the card, or on the CPU
+through the plain versions when the caller asks for it (``--no-tpu``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import json
 import time
 
 import numpy as np
@@ -351,10 +357,10 @@ def keygen_cases(lo: torch.Tensor) -> dict:
     }
 
 
-def bench_transform(transform: str, batch: int = 1 << 19, iters: int = 20) -> dict:
-    """Keygen-only rate of ``transform`` at ``batch`` seeds a call (seeds
-    below 2^32, fresh ones on each of four calls in turn): the best of 3
-    windows, as ``_rate`` takes them."""
+def bench_keygen(transform: str, batch: int = 1 << 19, iters: int = 20) -> dict:
+    """Keygen-only rate of the numeric ``transform`` at ``batch`` seeds a
+    call (seeds below 2^32, fresh ones on each of four calls in turn) from
+    CUDA events: the best of 3 windows, as ``_rate`` takes them."""
     dev = require_cuda()
     spec = parse_transform(transform)
     offsets = torch.arange(batch, dtype=torch.int64, device=dev)
@@ -377,6 +383,115 @@ def bench_transform(transform: str, batch: int = 1 << 19, iters: int = 20) -> di
         "iterations": iters,
         "device": torch.cuda.get_device_name(dev),
     }
+
+
+# --- the JAX command's ``bench`` (vuke_tpu/benchmark.py:28-126, 253-263) ---
+
+def _time_loop(fn, dev: torch.device, warmup_s: float, measure_s: float, depth: int = 2,
+               windows: int = 5):
+    """(iterations, seconds) of the fastest of ``windows`` windows of whole
+    ``fn()`` calls, each window ``measure_s / windows`` long, after
+    ``warmup_s`` of calls: ``vuke_tpu.benchmark._time_loop``.  On the card at
+    most ``depth`` calls are in flight (an event recorded after each) and a
+    window ends in ``torch.cuda.synchronize()``; on the CPU every call is
+    done when it returns."""
+    cuda = dev.type == "cuda"
+
+    def issue():
+        fn()
+        if not cuda:
+            return None
+        done = torch.cuda.Event()
+        done.record()
+        return done
+
+    end = time.time() + warmup_s
+    while time.time() < end:
+        ev = issue()
+        if ev is not None:
+            ev.synchronize()
+    win_s = measure_s / windows
+    best = None
+    for _ in range(windows):
+        n = 0
+        pending = []
+        t0 = time.time()
+        while n == 0 or time.time() - t0 < win_s:
+            ev = issue()
+            n += 1
+            if ev is not None:
+                pending.append(ev)
+                if len(pending) >= depth:
+                    pending.pop(0).synchronize()
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.time() - t0
+        if best is None or n / dt > best[0] / best[1]:
+            best = (n, dt)
+    return best
+
+
+def bench_transform(transform: str, batch: int = 1 << 16, warmup_s: float = 2.0,
+                    measure_s: float = 5.0, device=None) -> dict:
+    """The rate of one transform as the JAX command's ``bench`` measures it
+    (``vuke_tpu.benchmark.bench_transform``): a numeric transform's keygen
+    on ``batch`` seeds a call, (0, start + i) with start stepping by
+    ``batch``; a string-only one over decimal strings
+    (``_bench_string_transform``).  ``device``: the card when None, or
+    ``"cpu"`` for the plain versions on the host's clock."""
+    dev = require_cuda() if device is None or str(device) == "cuda" else torch.device(device)
+    spec = parse_transform(transform)
+    if spec.numeric is None:
+        return _bench_string_transform(spec, batch, warmup_s, measure_s, dev)
+    offsets = torch.arange(batch, dtype=torch.int64, device=dev)
+    hi = u32(offsets * 0)
+    turn = itertools.count(1)
+
+    def step():
+        return spec.numeric.keygen(hi, u32(offsets + next(turn) * batch))
+
+    iters, secs = _time_loop(step, dev, warmup_s, measure_s)
+    rate = iters * batch / secs
+    return {"transform": spec.name, "inputs_per_sec": rate,
+            "keys_per_sec": rate * spec.numeric.n_slots, "batch": batch,
+            "iterations": iters, "elapsed_secs": secs}
+
+
+def _bench_string_transform(spec, batch: int, warmup_s: float, measure_s: float, dev) -> dict:
+    """The host-batch rate of a string transform over the decimal strings
+    ``str(1_000_000_000 + i)``, ``min(batch, 1000)`` a call (the forward
+    drivers' string batch): ``vuke_tpu.benchmark._bench_string_transform``."""
+    bsz = min(batch, 1000)
+    turn = itertools.count()
+
+    def step():
+        base = next(turn) * bsz
+        strings = [str(1_000_000_000 + base + j) for j in range(bsz)]
+        keys = spec.string.fn(strings, dev)
+        if spec.string.valid_fn is not None:
+            spec.string.valid_fn(strings)
+        return keys
+
+    iters, secs = _time_loop(step, dev, warmup_s, measure_s, depth=1)
+    rate = iters * bsz / secs
+    return {"transform": spec.name, "inputs_per_sec": rate,
+            "keys_per_sec": rate * len(spec.string.slots), "batch": bsz,
+            "iterations": iters, "elapsed_secs": secs}
+
+
+def run_benchmark(transform: str, as_json: bool = False, batch: int = 1 << 16,
+                  seconds: float = 5.0, device=None):
+    """``bench_transform`` printed as ``vuke_tpu.benchmark.run_benchmark``
+    prints it: three lines, or one JSON object with ``as_json``."""
+    r = bench_transform(transform, batch=batch, measure_s=seconds, device=device)
+    if as_json:
+        print(json.dumps(r))
+    else:
+        print(f"Benchmark: {r['transform']}")
+        print(f"  {r['inputs_per_sec'] / 1e6:.2f} M inputs/sec "
+              f"({r['keys_per_sec'] / 1e6:.2f} M keys/sec)")
+        print(f"  batch={r['batch']} iters={r['iterations']} "
+              f"elapsed={r['elapsed_secs']:.2f}s")
 
 
 SCAN_METRIC = "scan_keys_per_sec"

@@ -4,8 +4,9 @@
     python -m vuke_tpu_torch scan --targets FILE [OPTIONS] SOURCE
     python -m vuke_tpu_torch single PASSPHRASE [--transform T] [--network N]
     python -m vuke_tpu_torch warmup [--transform T ...] [--batch N] [--device D]
-    python -m vuke_tpu_torch bench [--batch N] [--sequential] [--profile]
-    python -m vuke_tpu_torch bench --transform T [--transform T ...] [--batch N]
+    python -m vuke_tpu_torch [--no-tpu] COMMAND ...
+    python -m vuke_tpu_torch bench [--transform T] [--batch N] [--seconds S] [--json]
+    python -m vuke_tpu_torch bench --derive [--sequential] [--profile] [--batch N]
     python -m vuke_tpu_torch bench --scan T [--pool N] [--batch N]
     python -m vuke_tpu_torch bench --generate T | --strings T [--batch N]
     python -m vuke_tpu_torch bench --analyze F [--mode M]
@@ -43,7 +44,11 @@ columns from E1 (``cores/records.py``) on the card, or a scan's hits; then
 ``Storage: N files written (X)`` on stderr, the cloud upload and the
 Iceberg registration (``vuke_tpu/cli.py:160-230``).  ``single`` and
 ``query`` (``vuke_tpu/cli.py:581-597``) run on the host alone, as the JAX
-package's do.  ``VUKE_TPU_SMUL13=0`` in
+package's do.  ``--no-tpu`` before the command is the JAX group's flag: the
+device commands run on the CPU (``--device cpu``), ``single`` and
+``query`` ignore it; without it every device command runs on the card.
+``bench`` is the JAX command's (``vuke_tpu/cli.py:527-535``,
+``benchmark.run_benchmark``).  ``VUKE_TPU_SMUL13=0`` in
 the environment switches the scalar multiplication from K3 to K6 and
 ``VUKE_TPU_SEQUENTIAL=0`` turns the sequential path off, as they do for
 the JAX package.
@@ -435,38 +440,49 @@ def cmd_query(args) -> int:
 
 
 def cmd_bench(args) -> int:
+    """The JAX command's ``bench`` (``vuke_tpu/cli.py:527-535``) unless one
+    of the port's own benches is named: ``--derive`` (or ``--sequential``,
+    ``--profile``), ``--scan``, ``--generate`` [``--storage``],
+    ``--strings``, ``--analyze``, ``--wallet``, each one JSON line."""
     from . import benchmark
 
+    batch = args.batch or DEFAULT_BATCH
+    own = (args.derive or args.sequential or args.profile or args.scan or args.generate
+           or args.strings or args.analyze or args.wallet)
+    if own and args.device != "cuda":
+        _usage_error("the port's own benches (--derive, --sequential, --profile, --scan, "
+                     "--generate, --strings, --analyze, --wallet) measure the card: drop "
+                     "--no-tpu")
     if args.analyze:
         print(json.dumps(benchmark.bench_analyze(args.analyze, args.mode)), flush=True)
         return 0
     if args.wallet:
         print(json.dumps(benchmark.bench_wallet(args.wallet)), flush=True)
         return 0
-    if args.transform:
-        for name in args.transform:
-            print(json.dumps(benchmark.bench_transform(name, batch=args.batch)), flush=True)
-        return 0
     if args.scan:
-        print(json.dumps(benchmark.bench_scan(args.scan, pool_size=args.pool,
-                                              batch=args.batch)))
+        print(json.dumps(benchmark.bench_scan(args.scan, pool_size=args.pool, batch=batch)))
         return 0
     if args.generate and args.storage:
         print(json.dumps(benchmark.bench_storage(args.generate, args.storage)))
         return 0
     if args.generate:
-        print(json.dumps(benchmark.bench_generate(args.generate, batch=args.batch)))
+        print(json.dumps(benchmark.bench_generate(args.generate, batch=batch)))
         return 0
     if args.strings:
         print(json.dumps(benchmark.bench_strings(args.strings)))
         return 0
-    if args.sequential:
-        bench, prof = benchmark.bench_sequential, benchmark.profile_sequential
-    else:
-        bench, prof = benchmark.bench_derive, benchmark.profile_derive
-    print(json.dumps(bench(batch=args.batch)))
-    if args.profile:
-        print(json.dumps(prof(batch=args.batch)))
+    if args.derive or args.sequential or args.profile:
+        if args.sequential:
+            bench, prof = benchmark.bench_sequential, benchmark.profile_sequential
+        else:
+            bench, prof = benchmark.bench_derive, benchmark.profile_derive
+        print(json.dumps(bench(batch=batch)))
+        if args.profile:
+            print(json.dumps(prof(batch=batch)))
+        return 0
+    benchmark.run_benchmark(args.transform, as_json=args.as_json,
+                            batch=args.batch or 1 << 16, seconds=args.seconds,
+                            device=args.device)
     return 0
 
 
@@ -536,6 +552,9 @@ def _sources(p: argparse.ArgumentParser):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m vuke_tpu_torch")
+    p.add_argument("--no-tpu", dest="no_tpu", action="store_true",
+                   help="run on the CPU through the plain versions (the JAX command's flag; "
+                        "single and query ignore it)")
     sub = p.add_subparsers(dest="command", required=True)
 
     gen = sub.add_parser("generate", help="generate keys and print every one")
@@ -564,16 +583,25 @@ def build_parser() -> argparse.ArgumentParser:
     warm.add_argument("--device", default="cuda")
     warm.set_defaults(func=cmd_warmup)
 
-    bench = sub.add_parser("bench", help="derive, keygen, scan or generate rate on the card")
-    bench.add_argument("--batch", type=int, default=DEFAULT_BATCH)
+    bench = sub.add_parser("bench", help="inputs/s of a transform (2 s warm-up, then "
+                                         "--seconds), or one of the port's own rates")
+    bench.add_argument("--transform", default="sha256",
+                       help="the transform to time (default sha256; the last one given counts)")
+    bench.add_argument("--json", dest="as_json", action="store_true",
+                       help="one JSON object instead of the three lines")
+    bench.add_argument("--batch", type=int, default=None,
+                       help=f"inputs a call (default 65536; string transforms at most 1000; "
+                            f"{DEFAULT_BATCH} for the port's own benches)")
+    bench.add_argument("--seconds", type=float, default=5.0,
+                       help="seconds measured after the warm-up (default 5)")
+    bench.add_argument("--derive", action="store_true",
+                       help="seed_to_hash160_derivations_per_sec (milksad seeds -> hash160 "
+                            "on the card) as JSON, instead")
     bench.add_argument("--sequential", action="store_true",
                        help="the sequential scan's rate (direct:be) instead of "
                             "the milksad seed -> hash160 derive")
     bench.add_argument("--profile", action="store_true",
                        help="also print device time per kernel and the idle share")
-    bench.add_argument("--transform", action="append",
-                       help="the keygen-only rate of this transform (inputs/s and keys/s) "
-                            "instead; may be given more than once")
     bench.add_argument("--scan", metavar="TRANSFORM",
                        help="keys/s of a scan with this transform through the "
                             "pipelined driver, with its profile, instead")
@@ -599,7 +627,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="mnemonics/s of the multibit-hd dictionary attack (beside the "
                             "hashlib host path's) or seeds/s of an electrum timestamp scan, "
                             "with the kernel's time and the host's, instead")
-    bench.set_defaults(func=cmd_bench)
+    bench.set_defaults(func=cmd_bench, device="cuda")
 
     an = sub.add_parser("analyze", help="analyze a private key for vulnerable origins")
     an.add_argument("key")
@@ -636,6 +664,21 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+# subcommands that never touch a device ignore --no-tpu, as the JAX
+# command's group does (vuke_tpu/cli.py:125)
+_HOST_ONLY_COMMANDS = {"single", "query"}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line's options, ``--no-tpu`` applied: ``device`` is
+    "cpu" for every device command, as the JAX group switches to its CPU
+    backend."""
     args = build_parser().parse_args(argv)
+    if args.no_tpu and args.command not in _HOST_ONLY_COMMANDS:
+        args.device = "cpu"
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     return args.func(args)

@@ -9,16 +9,26 @@
 //
 // The 25 bytes version || h160 || checksum are a 200-bit big-endian number
 // whose 7 limbs are the version, the digest's 5 words read big-endian and
-// the checksum word.  Seven divisions of the limbs by 58^5 (each a 64-bit
-// division by a constant: a multiply-high) give 35 base-58 digits, five
-// from each remainder; the leading zero digits go, and each leading zero
-// byte of the 25 becomes a '1' (version 0x00 always gives one).  Addresses
-// are 26 to 34 characters, so a row ends in at least one NUL.
+// the checksum word.  Seven passes of division by 58^5 give its base-58
+// digits, five from each remainder (base58.cuh::base58check_row); each leading
+// zero byte of the 25 becomes a '1' (version 0x00 always gives one).
+// Addresses are 26 to 34 characters, so a row ends in at least one NUL.
 //
-// Bound: the ALU and FMA pipes: two SHA-256 compressions (~3,900
-// operations) and the divisions (vuke_tpu_torch/kernels/work.py::p2pkh),
-// against 20 bytes read and 35 written a lane.  The checksum and the base58
-// digits are base58.cuh's, shared with E1 (records.cu).
+// Bound: the ALU pipe: two SHA-256 compressions (~3,900 operations) and
+// the divisions (vuke_tpu_torch/kernels/work.py::p2pkh), against 20 bytes
+// read and 35 written a lane.  What the design does about the rest:
+// - a block of 256 lanes writes its rows into a 8,960-byte shared tile
+//   (zeroed first), then stores the tile, which is contiguous in `out`, as
+//   lane-consecutive 16-byte vectors: a warp's store touches 16 sectors
+//   for 512 bytes, where one byte a lane 35 bytes apart touched 32
+//   sectors for 32 bytes;
+// - the digits are kept as the passes' remainders (registers) and each is
+//   stored once at its final place, so no per-lane array is read at a
+//   runtime index (no local memory);
+// - the characters come from a 58-byte shared alphabet: one load on the
+//   memory pipe in place of ~10 ALU operations of range compares.
+// The divisions stay 64-bit divisions by a constant: their multiply-highs
+// run on the FMA pipe, beside the ALU-bound hashes.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -27,42 +37,43 @@
 
 namespace {
 
-using namespace vk::kg;
 using namespace vk::b58;
 
 constexpr int kRow = 35;
+constexpr int kThreads = 256;
+constexpr int kVecs = kRow * kThreads / 16;   // the tile: 8,960 bytes
+static_assert(kRow * kThreads % 16 == 0, "a block's rows are whole 16-byte vectors");
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 p2pkh_kernel(const uint32_t* __restrict__ h160, uint32_t version, uint8_t* __restrict__ out,
              long long n) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    uint32_t d[5];
-#pragma unroll
-    for (int j = 0; j < 5; j++) d[j] = bswap(h160[j * n + i]);   // digest bytes 4j.. as BE
-    // the 21-byte payload version || h160 as BE message words
-    uint32_t m[14];
-    m[0] = (version << 24) | (d[0] >> 8);
-#pragma unroll
-    for (int j = 1; j < 5; j++) m[j] = (d[j - 1] << 24) | (d[j] >> 8);
-    m[5] = d[4] << 24;
-#pragma unroll
-    for (int j = 6; j < 14; j++) m[j] = 0;
-    uint32_t limb[7] = {version, d[0], d[1], d[2], d[3], d[4], sha256d_word0(m, 21)};
-    const uint32_t zeros = leading_zero_bytes<7, 1>(limb);
-    // '1' x zeros, then the 35 digits from the first non-zero one, then NULs
-    base58_row<7, 7, kRow>(limb, zeros, out + i * kRow);
+    __shared__ uint4 tile[kVecs];
+    __shared__ uint8_t alphabet[64];
+    const long long base = (long long)blockIdx.x * kThreads;
+    const uint32_t rows = (uint32_t)min((long long)kThreads, n - base);
+    zero_tile<kVecs, kThreads>(tile);
+    load_alphabet(alphabet);
+    __syncthreads();
+    if (threadIdx.x < rows) {
+        uint32_t p[8];
+        digest_payload(h160, n, base + threadIdx.x, p);
+        base58check_row(false, false, version, p, alphabet,
+                        reinterpret_cast<uint8_t*>(tile) + threadIdx.x * kRow);
+    }
+    __syncthreads();
+    store_tile<kVecs, kThreads>(tile, out + base * kRow, rows * kRow);
 }
 
 }  // namespace
 
-// h160: (5, n) LE words (K2's compressed digests); out: (n, 35) bytes.
+// h160: (5, n) LE words (K2's compressed digests); out: (n, 35) bytes,
+// 16-byte aligned.
 extern "C" int vk_p2pkh(const uint32_t* h160, int version, uint8_t* out, long long n,
                         void* stream) {
-    if (version < 0 || version > 255) return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    const long long blocks = (n + threads - 1) / threads;
-    p2pkh_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(h160, (uint32_t)version,
-                                                                         out, n);
+    if (version < 0 || version > 255 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    p2pkh_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        h160, (uint32_t)version, out, n);
     return VK_LAUNCH_STATUS();
 }

@@ -579,14 +579,13 @@ def p2pkh() -> Ops:
     constant, a 64-bit multiply-high (4 wide products), the quotient's
     shift, the remainder's wide product and subtract), five digits from
     each remainder (4 divisions by 58: a multiply-high, the remainder's
-    multiply-add, a shift) and each of 34 characters from its digit (5
-    compares and selects)."""
+    multiply-add, a shift); each character is its digit's entry of a
+    shared-memory alphabet, a load on neither pipe."""
     t = Trace()
     words = [t.funnel(None, None, 8) for _ in range(6)]
     state = sha256_block(t, SHA_IV, words + [0] * 9 + [168])
     sha256_block(t, SHA_IV, state + [0x80000000] + [0] * 6 + [256])
-    return (t.ops + 28 * Ops(mul=2 * 4 + 2, alu=1, add=6) + 28 * Ops(mul=3, alu=1)
-            + 34 * Ops(alu=5))
+    return t.ops + 28 * Ops(mul=2 * 4 + 2, alu=1, add=6) + 28 * Ops(mul=3, alu=1)
 
 
 # --- E1 (csrc/records.cu): a record's string columns.  Counted on known and
@@ -639,14 +638,13 @@ def _divide_out(t: Trace, limbs: list, nbits: int, divisor: int, passes: int, pe
     return digits
 
 
-def _base58_lane(t: Trace, limbs: list, nbytes: int, zeros, width: int):
+def _base58_lane(t: Trace, limbs: list, nbytes: int, zeros):
     """base58 of the number in ``limbs`` (``nbytes`` bytes) after ``zeros``
-    leading zero bytes, each of the ``width`` characters from its digit (5
-    compares and selects)."""
+    leading zero bytes, each character its digit's entry of a shared-memory
+    alphabet (a load on neither pipe)."""
     passes = -(-math.ceil(8 * nbytes / math.log2(58)) // 5)
     digits = _divide_out(t, limbs, 8 * nbytes, 58 ** 5, passes, 5, 58)
     if None in digits or zeros is None:
-        _count(t, Ops(alu=5), width)
         return None
     body = bytes(_B58_ALPHABET[d] for d in digits).lstrip(b"1")
     return b"1" * zeros + body
@@ -673,7 +671,7 @@ def _bytes_be(words: list) -> list:
     return [None if w is None else (w >> s) & 0xFF for w in words for s in (24, 16, 8, 0)]
 
 
-def _base58check_lane(t: Trace, words: list, version: int, one: bool, width: int):
+def _base58check_lane(t: Trace, words: list, version: int, one: bool):
     """base58check of version || the payload (the BE ``words`` [|| 0x01]):
     its message words and limbs from funnel shifts, the checksum, the
     digits of the number."""
@@ -690,7 +688,7 @@ def _base58check_lane(t: Trace, words: list, version: int, one: bool, width: int
                  + [t.funnel(words[-1], tail, 24), chk])
     else:
         limbs = [version] + list(words) + [chk]
-    return _base58_lane(t, limbs, nbytes + 4, _zero_bytes(t, byts), width)
+    return _base58_lane(t, limbs, nbytes + 4, _zero_bytes(t, byts))
 
 
 def _bech32_lane(t: Trace, d: list, hrp: str):
@@ -730,17 +728,15 @@ def records_lane(t: Trace, k: list, hc: list, hu: list, p2pkh_version: int = 0x0
     reaches it."""
     out = {}
     digits = _divide_out(t, k, 256, 10 ** 9, 9, 9, 10)
-    out["private_key_decimal"] = None
-    if None in digits:
-        _count(t, Ops(add=1), 78)                    # '0' + digit
-    else:
+    out["private_key_decimal"] = None                # a digit's character: a table load
+    if None not in digits:
         out["private_key_decimal"] = bytes(48 + d for d in digits).lstrip(b"0") or b"0"
-    out["wif_uncompressed"] = _base58check_lane(t, k, wif_version, False, 51)
-    out["wif_compressed"] = _base58check_lane(t, k, wif_version, True, 52)
+    out["wif_uncompressed"] = _base58check_lane(t, k, wif_version, False)
+    out["wif_compressed"] = _base58check_lane(t, k, wif_version, True)
     dc = [t.bswap(w) for w in hc]
     du = [t.bswap(w) for w in hu]
-    out["address_p2pkh_compressed"] = _base58check_lane(t, dc, p2pkh_version, False, 34)
-    out["address_p2pkh_uncompressed"] = _base58check_lane(t, du, p2pkh_version, False, 34)
+    out["address_p2pkh_compressed"] = _base58check_lane(t, dc, p2pkh_version, False)
+    out["address_p2pkh_uncompressed"] = _base58check_lane(t, du, p2pkh_version, False)
     out["address_p2wpkh"] = _bech32_lane(t, dc, hrp)
     if None in k:
         # a count leading zeros, a population count, the prefix's select
