@@ -89,8 +89,12 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    digests) and D2 (``csrc/p2pkh.cu``, generate's P2PKH encoding):
    7a. D1 in every mode on 2^16 strings of 0 to 300 bytes (the padding
    edges and UTF-8 text included) and its chain mode at depth 10, against
-   its plain version and hashlib on every lane; its time on 2^19 strings
-   of 1 to 64 bytes, and hashlib's on the host;
+   its plain version and hashlib on every lane; then at its edges
+   (``digest_edges``: a warp of 1 to 6 blocks a string, empty strings,
+   55 to 120 bytes, a 10 KB string, blocks past its shared tile, every
+   byte alignment and words off 16 bytes, M = 1, 255, 257, 1869); its time
+   on 2^19 strings of 1 to 64 bytes with bound and share, and hashlib's on
+   the host;
    7b. D2 on 2^19 random and edge hash160s (all zeros, all 0xff, 8 zero
    bytes first) and at the tail sizes 1, 255, 257 and 1869 for the
    versions 0x00 and 0x6F against its plain version on every row and
@@ -121,8 +125,14 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    cascade of 40), against their plain versions on 2^24 and 2^22 lanes
    with hits planted in the middle lane and the last, across the carry into
    the high word (mt64, xorshift) and the u32 wrap (chains): the records
-   must be equal; then each kernel's time at the sweeps' batches (S1 2^24,
-   S2 2^22) beside its plain version's and its bound;
+   must be equal; S1's LCG grid at its edges in every variant and byte
+   order (``lcg_edges_against_plain``: the least hit in a later thread's
+   earlier lane, first and last lanes, one lane, the u32 wrap, the count
+   tracked, all 2^32 seeds against the planted one); then each kernel's
+   time at the sweeps' batches (S1 2^24: milksad exact, mt64 and xorshift
+   cascades, every LCG variant and byte order exact; S2 2^22) beside its
+   plain version's, its bound and share, and the LCG instantiations'
+   registers;
    8b. ``analyze`` through the command line over the full spaces, keys from
    the host oracles: milksad exact (seed 2^32 - 17, then a random key:
    NOT_FOUND over 2^32), ``--mask 40``, lcg planted in borland near its
@@ -566,7 +576,8 @@ def phase_build(card: str) -> dict:
     lib = kernels.library()
     parts = []
     for name, regs, stack, spill in kernels.ptxas_usage(lib.log):
-        parts.append(f"{name}: {regs} regs, stack {stack} B, spills {spill} B")
+        parts.append(f"{kernels.entry_name(name)}: {regs} regs, stack {stack} B, "
+                     f"spills {spill} B")
     summary = ", ".join(parts)
     say(f"[2 build] nvcc (one per source, in parallel) built {lib.path.name} in {lib.build_seconds:.1f} s [{card}]; {summary}")
     counted = KERNELS | RECORD_KERNELS | {"p2pkh": p2pkh.KERNEL}
@@ -1436,6 +1447,59 @@ def digest_mismatches(datas, got: torch.Tensor, mode: str, lanes) -> list:
     return [j for j in lanes if arr[j].tobytes() != host_digest(datas[j], mode)]
 
 
+def digest_edges(rng) -> list:
+    """(what, strings, offset) of D1's edges: a warp of strings of 1 to 6
+    blocks, empty strings, the padding edges, a 10 KB string and blocks
+    whose 256 strings exceed the kernel's 16 KB tile, strings at every
+    byte alignment (and, with ``offset`` 1, the words one u32 off a 16-byte
+    boundary), and the batch sizes 1, 255, 257 and 1869."""
+    rand = lambda lens: [rng.bytes(int(k)) for k in lens]
+    blocks = [0, 55, 56, 119, 120, 183, 184, 247, 248, 311, 312, 375]
+    warp = rand(blocks + list(rng.integers(0, 376, 20)))
+    pads = rand([55, 56, 63, 64, 119, 120] * 43)
+    edges = [("a warp of 1 to 6 blocks", warp * 9, 0),
+             ("empty strings", [b""] * 300 + rand(rng.integers(0, 3, 300)), 0),
+             ("55, 56, 63, 64, 119, 120 bytes", pads, 0),
+             ("a 10 KB string among short ones", rand(rng.integers(1, 65, 300)) +
+              [rng.bytes(10240)] + rand(rng.integers(1, 65, 300)), 0),
+             ("700 strings of 100 bytes (25.6 KB a block)", rand([100] * 700), 0)]
+    aligned = [s for k in range(64) for s in rand([k % 4, 1 + k % 40])]
+    edges += [("every byte alignment", aligned, 0),
+              ("every byte alignment, words off 16 bytes", aligned, 1)]
+    edges += [(f"M = {m}", rand(rng.integers(0, 131, m)), 0) for m in TAILS]
+    return edges
+
+
+def digest_edges_against_plain(dev, rng, modes=digest.MODES + ("chain",)) -> list:
+    """D1 on each of ``digest_edges`` in ``modes``, one launch a call,
+    against its plain version and hashlib on every lane (the chain at depth
+    3 from the strings' SHA-256); returns the edges held."""
+    held = []
+    for what, datas, shift in digest_edges(rng):
+        words, offsets = digest.pack(datas)
+        buf = torch.zeros(words.numel() + 4, dtype=torch.uint32, device=dev)
+        wd = buf[shift:shift + words.numel()]
+        wd.copy_(words.to(dev))
+        od = offsets.to(dev)
+        for mode in modes:
+            if mode == "chain":
+                keys = digest.digest_plain(words, offsets, "sha256")
+                got = launched_once(digest.KERNEL, lambda: digest.digest_chain(keys.to(dev), 3))
+                if not torch.equal(as_i64(got.cpu()), as_i64(digest.digest_chain_plain(keys, 3))):
+                    raise AssertionError(f"D1 chain on {what}: differs from plain")
+            else:
+                got = launched_once(digest.KERNEL, lambda: digest.digest(wd, od, mode))
+                if not torch.equal(as_i64(got.cpu()),
+                                   as_i64(digest.digest_plain(words, offsets, mode))):
+                    raise AssertionError(f"D1 {mode} on {what}: differs from plain")
+                bad = digest_mismatches(datas, got, mode, range(len(datas)))
+                if bad:
+                    raise AssertionError(f"D1 {mode} on {what}: lanes {bad[:8]} differ from "
+                                         f"hashlib")
+        held.append(what)
+    return held
+
+
 def p2pkh_digests(rng, n: int) -> torch.Tensor:
     """(5, n) uint32 LE hash160 words: all zeros, all 0xff, 8 zero bytes
     first, then random ones."""
@@ -1510,6 +1574,9 @@ def phase_digest(dev, rng, card: str, int_ops_per_s: float):
         f"300 and UTF-8 included): sha256, double_sha256, md5 == plain lane-exact (max abs "
         f"err 0) and == hashlib on every lane; the chain at depth 10 == plain and hashlib; "
         f"one launch a call")
+    held = digest_edges_against_plain(dev, rng)
+    say(f"[7a D1 edges] {'; '.join(held)}: sha256, double_sha256, md5 and the chain at depth "
+        f"3 == plain and hashlib on every lane, one launch a call")
 
     short = [rng.bytes(int(k)) for k in rng.integers(1, 65, BATCH)]
     sw, so = digest.pack(short)
@@ -1977,6 +2044,108 @@ def sweep_against_plain(dev, rng, n_prng: int = S1_LANES, n_chain: int = S2_LANE
     return out
 
 
+def lcg_alias(seed: int, v: int) -> int:
+    """The least u32 seed with ``seed``'s LCG key: glibc's state is the
+    seed mod 2^31, minstd's mod 2^31 - 1; msvc's and borland's are the seed."""
+    m = lcg.ALL_VARIANTS[v].m
+    return seed % m if m < SPACE else seed
+
+
+def lcg_grid_threads(dev, limit: int) -> int:
+    """The threads of S1's LCG grid for ``limit`` lanes (csrc/sweep_prng.cu,
+    ``lcg_launch``): 256 a block, two blocks an SM (``kLcgBlocksPerSm``),
+    no more than the lanes need.  Lane i runs on thread i mod that, in its
+    loop's iteration i // that."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(-(-limit // 256), 2 * sms) * 256
+
+
+def lcg_edges_against_plain(dev, v: int, be: bool) -> list:
+    """S1's LCG launch shape (a grid of T threads, thread t taking lanes t,
+    t + T, ...) at its edges, for variant ``v`` and byte order ``be``:
+    - a mask whose least hit is a thread's earlier lane while a lower
+      thread hits in a later one, with and without the first-filter count
+      (a thread that tracks goes on past its hit): thread 63's first lane
+      and a later lane of one of threads 32..62 (the same warp), or, for BE
+      power-of-two LCGs, whose masked bits repeat with the seed's low bits
+      (every 2^(bits-1) seeds, a period that divides T up to 2^12), a 20-bit
+      mask's hits 2^19 lanes apart, the later in a lower thread of another
+      block;
+    - exact hits in the first and the last lane of 5 T + 12,345 lanes;
+    - one lane (exact and mask);
+    - a batch across the u32 wrap of the low seed word, from (3 << 32) +
+      2^32 - 100;
+    - all 2^32 lanes from 0, exact, against the planted seed (or the least
+      seed with its key, ``lcg_alias``): no plain version at that size.
+    Each record must equal the plain version's; returns the cases held."""
+    got = torch.empty(2, dtype=torch.int64, device=dev)
+    want = torch.empty(2, dtype=torch.int64, device=dev)
+    var, tag = lcg.ALL_VARIANTS[v], f"S1 lcg:{v}:{'be' if be else 'le'}"
+    held = []
+
+    def hold(what, start, limit, cmp, at):
+        before = sweep.PRNG_KERNEL.launches
+        sweep.sweep_prng(got, start, limit, "lcg", v, be, cmp)
+        torch.cuda.synchronize()
+        if sweep.PRNG_KERNEL.launches != before + 1:
+            raise AssertionError(f"{tag} {what}: no launch")
+        g = got.tolist()
+        if limit < SPACE:
+            sweep.sweep_prng_plain(want, start, limit, "lcg", v, be, cmp)
+            if g != want.tolist():
+                raise AssertionError(f"{tag} {what}: kernel {g}, plain {want.tolist()}")
+        if g[0] != at and (at is not None or not 0 <= g[0] <= 300 or g[1] < 1):
+            raise AssertionError(f"{tag} {what}: first hit {g[0]}, planted at {at}")
+        held.append(what)
+
+    exact = lambda seed: sweep.Compare("exact", words=tuple(key_words(
+        plain_keys("lcg", v, be, seed, 1)[0])))
+    mask = lambda seed, bits, track=False: sweep.Compare(
+        "mask", targets=((bits, apply_mask(plain_keys("lcg", v, be, seed, 1)[0], bits)),),
+        track=track)
+
+    threads = lcg_grid_threads(dev, 1 << 24)
+    if be and var.m != (1 << 31) - 1:
+        # a power-of-two modulus: a BE word's low bits follow the seed's low
+        # bits alone, so a 20-bit mask's hits are 2^19 seeds apart
+        bits, lead, seed = 20, threads + 20_000, 1 << 28
+        limit, other = lead + (1 << 19) + 5000, lead + (1 << 19)
+    else:
+        # an 8-bit mask from a seed 63 lanes into the batch; some thread of
+        # 32..62 (the same warp) hits in a later lane
+        bits, lead, limit = 8, 63, 16 * threads + 5000
+        for seed in range(1 << 28, (1 << 28) + 1000 * 4096, 4096):
+            lo = (seed - lead + torch.arange(limit, dtype=torch.int64, device=dev)) & 0xFFFFFFFF
+            hits = sweep.mask_ok(lcg.lcg_key_words(lo, var, be), bits,
+                                 apply_mask(plain_keys("lcg", v, be, seed, 1)[0], bits))
+            lower = torch.nonzero(hits[threads:]).flatten() + threads
+            lower = lower[(lower % threads >= 32) & (lower % threads < lead)]
+            if bool(hits[lead]) and not bool(hits[:lead].any()) and lower.numel():
+                other = int(lower[0])
+                break
+        else:
+            raise AssertionError(f"{tag}: no seed whose mask hits as planned")
+    (k_x, t_x), (k_y, t_y) = divmod(lead, threads), divmod(other, threads)
+    if lcg_grid_threads(dev, limit) != threads or not (
+            t_y < t_x and k_y > k_x):
+        raise AssertionError(f"{tag}: lanes {lead} and {other} of {threads} threads")
+    for track in (False, True):
+        hold(f"thread {t_x}'s lane {k_x} before thread {t_y}'s lane {k_y}"
+             + (", tracked" if track else ""), seed - lead, limit, mask(seed, bits, track), lead)
+    start, limit = 1 << 30, 5 * threads + 12_345
+    hold("the first lane", start, limit, exact(start), 0)
+    hold("the last lane", start, limit, exact(start + limit - 1), limit - 1)
+    hold("one lane, exact", start, 1, exact(start), 0)
+    hold("one lane, mask", start, 1, mask(start, 64), 0)
+    start = (3 << 32) + SPACE - 100
+    hold("across the u32 wrap", start, 1000, exact(start + 300), 300)
+    # an 8-bit mask: lanes before the planted one hit too; the plain decides
+    hold("across the u32 wrap, tracked", start, 1000, mask(start + 300, 8, True), None)
+    planted = SPACE - 5
+    hold("2^32 lanes", 0, SPACE, exact(planted), lcg_alias(planted, v))
+    return held
+
+
 def sweep_timing(dev, card: str, int_ops_per_s: float) -> dict:
     """Each S1 family in its analyzer's mode on S1_LANES seeds and S2 in each
     variant (exact, depth 10) on S2_LANES: CUDA events, device time
@@ -2002,29 +2171,40 @@ def sweep_timing(dev, card: str, int_ops_per_s: float) -> dict:
         return plain_ms
 
     n = S1_LANES
-    for family, v, cmp in (("milksad", 0, sweep.Compare("exact", words=rnd)),
-                           ("mt64", 0, sweep.Compare("cascade", targets=cascade, track=True)),
-                           ("lcg", 3, sweep.Compare("exact", words=rnd)),
-                           ("xorshift", 2, sweep.Compare("cascade", targets=cascade, track=True))):
+    exact = sweep.Compare("exact", words=rnd)
+    cases = [("milksad", 0, True, exact),
+             ("mt64", 0, True, sweep.Compare("cascade", targets=cascade, track=True))]
+    cases += [("lcg", v, be, exact) for v in range(4) for be in (True, False)]
+    cases.append(("xorshift", 2, True, sweep.Compare("cascade", targets=cascade, track=True)))
+    for family, v, be, cmp in cases:
         start = 1 << 40 if family in ("mt64", "xorshift") else 0
-        fn = lambda: sweep.sweep_prng(rec, start, n, family, v, True, cmp)
+        fn = lambda: sweep.sweep_prng(rec, start, n, family, v, be, cmp)
         ms = time_cuda(fn, iters=10, warmup=2)
         dev_ms = launch_device_ms(fn, sweep.PRNG_KERNEL, iters=10)
-        plain_ms = plain_run(lambda r: sweep.sweep_prng_plain(r, start, n, family, v, True, cmp),
+        plain_ms = plain_run(lambda r: sweep.sweep_prng_plain(r, start, n, family, v, be, cmp),
                              f"S1 {family}:{v} {cmp.mode}")
         reach = [1.0]
+        if cmp.mode == "exact":
+            reach.append(word0_passes(dev, family, v, be, start, n, rnd[0]) / n)
         for b, _ in cmp.targets[:-1]:
             reach.append(reach[-1] * 2.0 ** (1 - b))
-        ops = work.sweep_prng(family, cmp.mode, v, True, reach)
+        ops = work.sweep_prng(family, cmp.mode, v, be, reach)
         bound_ms, bound_by, limit = bound_of(16, ops, n, int_ops_per_s)
-        say(f"[8a time] S1 {family}:{v} {cmp.mode} on {n} seeds: kernel {ms:.4f} ms (CUDA "
+        name = f"{family}:{v}" + (f":{'be' if be else 'le'}" if family == "lcg" else "")
+        say(f"[8a time] S1 {name} {cmp.mode} on {n} seeds: kernel {ms:.4f} ms (CUDA "
             f"events), {dev_ms:.4f} ms device (profiler), {n / dev_ms / 1e6:.3f} G seeds/s; "
             f"plain {plain_ms:.1f} ms, record == the kernel's; bound {bound_ms:.4f} ms by "
             f"{limit} ({100 * bound_ms / dev_ms:.1f}% of the device time; a lane needs "
-            f"{ops.mul:.1f} multiplies, {ops.alu:.1f} ALU, {ops.add:.1f} adds; further keys "
+            f"{ops.mul:.1f} multiplies, {ops.alu:.1f} ALU, {ops.add:.1f} adds; "
+            f"{'lanes past word 0' if cmp.mode == 'exact' else 'further keys'} "
             f"reach {[f'{r:.3g}' for r in reach[1:]]}) [{card}]")
         if family == "milksad":
             times["sweep_prng"] = (ms, plain_ms, bound_ms, bound_by)
+    usage = [(re.search(r"sweep_prng_kernelILi(\d)ELb([01])ELb([01])E", name), regs, stack, spill)
+             for name, regs, stack, spill in kernels.ptxas_usage(kernels.library().log)]
+    say("[8a build] S1's LCG instantiations: " + ", ".join(
+        f"{m[1]}:{'be' if m[2] == '1' else 'le'}:{'exact' if m[3] == '1' else 'mask'} {regs} regs, "
+        f"stack {stack} B, spills {spill} B" for m, regs, stack, spill in usage if m))
     n = S2_LANES
     for v in sweep.CHAIN_VARIANTS:
         cmp = sweep.Compare("exact", words=rnd)
@@ -2045,6 +2225,15 @@ def sweep_timing(dev, card: str, int_ops_per_s: float) -> dict:
     return times
 
 
+def word0_passes(dev, family: str, v: int, be: bool, start: int, n: int, word0: int) -> int:
+    """The lanes of a batch whose key word 0 equals ``word0`` (the lanes an
+    exact sweep takes past its first compare), from the plain keystream."""
+    lo = (start & 0xFFFFFFFF) + torch.arange(n, dtype=torch.int64, device=dev)
+    hi = ((start >> 32) + (lo >> 32)) & 0xFFFFFFFF
+    key = sweep.prng_keys_plain(family, v, be, hi, lo & 0xFFFFFFFF)[0]
+    return int((key[0] == word0).sum())
+
+
 def phase_sweep_kernels(dev, rng, card: str, int_ops_per_s: float):
     """8a: S1 and S2 against their plain versions on the main path's
     batches, then their times."""
@@ -2057,6 +2246,11 @@ def phase_sweep_kernels(dev, rng, card: str, int_ops_per_s: float):
         f"{held['sweep_chain'][0]} cases on {S2_LANES} lanes (4 variants at depth 10 and a "
         f"cascade of {CASCADE}, across the u32 wrap): first hit and first-filter count == "
         f"plain on every case (max abs err 0); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    edges = [lcg_edges_against_plain(dev, v, be) for v in range(4) for be in (True, False)]
+    say(f"[8a S1 lcg edges] every LCG variant, BE and LE: {'; '.join(edges[0])}: first hit "
+        f"(and first-filter count) == plain and the planted seed, {sum(map(len, edges))} "
+        f"cases; {time.perf_counter() - t0:.1f} s")
     times = sweep_timing(dev, card, int_ops_per_s)
     return {k: err for k, (_, err) in held.items()}, times
 

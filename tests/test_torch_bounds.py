@@ -82,6 +82,49 @@ def test_counted_mt19937_is_mt19937(seed):
     assert t.ops == work.Ops()
 
 
+@pytest.mark.parametrize("family,v,be", [("lcg", v, be) for v in range(4) for be in (True, False)]
+                         + [("xorshift", v, True) for v in range(4)])
+def test_counted_exact_sweep_is_output_one_and_a_compare(family, v, be):
+    """S1's exact mode needs, for every lane, the stream's first output and
+    one compare (key word 0 against target word 0), beside the seed's
+    lattice; the rest of the key only for the lanes that pass.  The counted
+    first output, run on a known seed, is the plain generator's; an LCG's
+    is counted as the generator gives it (a little-endian key's byteswap
+    folds into the target word).  glibc's (doubled), msvc's and borland's
+    is affine mod 2^32, so the lane T seeds on is one add away: the count
+    is that add and the compare."""
+    from vuke_tpu_torch.cores import lcg, xorshift
+
+    seed = (7 << 32) | 0x9E3779B9
+    hi, lo = torch.tensor([seed >> 32]), torch.tensor([seed & 0xFFFFFFFF])
+    t, n = work.Trace(), work.Trace()
+    if family == "lcg":
+        got = work.lcg_lane(t, seed & 0xFFFFFFFF, lcg.ALL_VARIANTS[v], be, 1)
+        work.lcg_lane(n, None, lcg.ALL_VARIANTS[v], True, 1)
+        want = lcg.lcg_key_words(lo, lcg.ALL_VARIANTS[v], be)[:1]
+        lattice = work.Ops(add=1)
+    else:
+        name = xorshift.VARIANT_NAMES[v]
+        got = work.xorshift_lane(t, name, seed >> 32, seed & 0xFFFFFFFF, n_out=1)
+        work.xorshift_lane(n, name, None, None, n_out=1)
+        want = xorshift.KEY_FNS[name](hi, lo, 1)[:len(got)]
+        lattice = work.Ops(alu=1, add=2)
+    assert got == [int(w) for w in want] and t.ops == work.Ops()
+    if family == "lcg" and lcg.ALL_VARIANTS[v].m != (1 << 31) - 1:
+        var, m = lcg.ALL_VARIANTS[v], 0xFFFFFFFF
+        k = 1 if var.m == 1 << 31 else 0
+        out = lambda s: (int(lcg.lcg_key_words(torch.tensor([s]), var)[0]) << k) & m
+        for step in (1, 132 * 2 * 256, 1 << 31):
+            assert out((seed + step) & m) == (out(seed & m) + (var.a << k) * step) & m
+        assert work.sweep_prng(family, "exact", v, be) == work.Ops(add=1, alu=1)
+    else:
+        assert work.sweep_prng(family, "exact", v, be) == lattice + n.ops + work.Ops(alu=1)
+    key = work.sweep_prng(family, "exact", v, be, reach=(1.0, 1.0))
+    assert key == work.sweep_prng(family, "mask", v, be) + work.Ops(alu=4)
+    if not be:
+        assert work.sweep_prng(family, "exact", v, be) == work.sweep_prng(family, "exact", v)
+
+
 @pytest.mark.parametrize("n", [0, 3, 111])
 def test_counted_sha512_is_sha512(n):
     """The counted SHA-512 compression (W1's bound) on known words computes
@@ -190,9 +233,13 @@ ptxas info    : Used 96 registers, used 0 barriers, 16 bytes cumulative stack si
 
 def test_phase_build_reads_registers_and_spills():
     """Phase 2's summary: each entry function of the ``-Xptxas -v`` log with
-    its registers, stack and spill bytes, under a short name."""
-    assert kernels.ptxas_usage(PTXAS_LOG) == [("inv_affine_kernel", 88, 64, 0),
-                                              ("smul_kernel", 96, 16, 32)]
+    its registers, stack and spill bytes, under its name as the log has it
+    (``entry_name`` shortens it)."""
+    usage = kernels.ptxas_usage(PTXAS_LOG)
+    assert [(kernels.entry_name(name), *rest) for name, *rest in usage] == [
+        ("inv_affine_kernel", 88, 64, 0), ("smul_kernel", 96, 16, 32)]
+    assert usage[1][0] == ("_ZN38_GLOBAL__N__aa6537bb_7_smul_cu_vk_smul11smul_kernel"
+                           "EPKjPK5uint4PjS5_S5_S5_x")
 
 
 def test_cold_ring_turns_inputs_and_holds_outputs():

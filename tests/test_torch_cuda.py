@@ -277,6 +277,17 @@ def test_digest_kernel_matches_plain_and_hashlib(dev, mode):
     assert digest.KERNEL.launches == before + 1
 
 
+@pytest.mark.parametrize("mode", ["sha256", "double_sha256", "md5", "chain"])
+def test_digest_kernel_edges(dev, mode):
+    """D1 at its edges, one launch each, against its plain version and
+    hashlib on every lane: a warp of strings of 1 to 6 blocks, empty
+    strings, 55 to 120 bytes, a 10 KB string, blocks whose strings exceed
+    the shared tile, every byte alignment (and the words off 16 bytes),
+    M = 1, 255, 257 and 1869 (chip_smoke phase 7a)."""
+    held = chip_smoke.digest_edges_against_plain(dev, np.random.default_rng(12), (mode,))
+    assert len(held) == 11
+
+
 @pytest.mark.parametrize("version", [0x00, 0x6F])
 def test_p2pkh_kernel_matches_plain(dev, version):
     """D2 on random and edge hash160s (all zeros, all 0xff), one launch,
@@ -323,6 +334,17 @@ def test_sweep_kernels_match_plain(dev):
     the carry and the u32 wrap, hits planted (chip_smoke phase 8a)."""
     held = chip_smoke.sweep_against_plain(dev, np.random.default_rng(3), 4096, 4096)
     assert held == {"sweep_prng": (74, 0), "sweep_chain": (28, 0)}
+
+
+@pytest.mark.parametrize("v", range(4))
+@pytest.mark.parametrize("be", [True, False])
+def test_sweep_lcg_grid_edges(dev, v, be):
+    """S1's LCG grid (thread t takes lanes t, t + T, ...) in every variant
+    and byte order: the least hit where a lower thread of the same warp
+    hits in a later lane, with and without the tracked count; the first
+    and last lanes of 5 T + 12,345; one lane; the u32 wrap; all 2^32 seeds
+    against the planted one (chip_smoke phase 8a)."""
+    assert len(chip_smoke.lcg_edges_against_plain(dev, v, be)) == 9
 
 
 def test_sweep_launch_failure_raises(dev):

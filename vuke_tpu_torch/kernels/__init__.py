@@ -143,15 +143,16 @@ def entry_name(mangled: str) -> str:
 
 
 def ptxas_usage(log: str) -> list[tuple[str, int, int, int]]:
-    """(entry function's name, registers, stack bytes, spill store + load
-    bytes) per entry of a ``-Xptxas -v`` log."""
+    """(entry function's name as the log has it, registers, stack bytes,
+    spill store + load bytes) per entry of a ``-Xptxas -v`` log;
+    ``entry_name`` gives the unqualified name."""
     out = []
     for chunk in log.split("Compiling entry function '")[1:]:
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads.*?Used (\d+) registers", chunk, flags=re.S)
         if m:
             stack, st, ld, regs = map(int, m.groups())
-            out.append((entry_name(chunk.split("'")[0]), regs, stack, st + ld))
+            out.append((chunk.split("'")[0], regs, stack, st + ld))
     return out
 
 

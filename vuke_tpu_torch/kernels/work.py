@@ -253,12 +253,12 @@ def hash160_lane(t: Trace, x, y):
     return hc, hu, frags
 
 
-def mt19937_lane(t: Trace, seed, n_keys: int = 1):
+def mt19937_lane(t: Trace, seed, n_keys: int = 1, n_out: int | None = None):
     """K1 on one seed (without the normalize epilogue): init_genrand to
     state index 8 n_keys + 396, then the first 8 n_keys outputs twisted,
     tempered and byteswapped into BE key words (csrc/mt19937.cu; S1 streams
-    further keys)."""
-    n_out = 8 * n_keys
+    further keys); with ``n_out``, that many outputs (key words) alone."""
+    n_out = 8 * n_keys if n_out is None else n_out
     state = [seed]
     for k in range(1, n_out + 397):
         s = state[-1]
@@ -398,13 +398,13 @@ def keygen_hash(mode: str, digits: float) -> Ops:
     return t.ops + decimal(digits)
 
 
-def lcg_lane(t: Trace, seed, v, big_endian: bool = True):
-    """8 outputs of the LCG variant ``v`` (cores/lcg.py) from a u32 seed:
-    a multiply-add a step; glibc masks it (1); minstd takes the wide product
-    (2 results) and folds mod 2^31 - 1 twice (5 ALU, 3 adds) and keeps 0
-    canonical (a compare and a select)."""
+def lcg_lane(t: Trace, seed, v, big_endian: bool = True, n_out: int = 8):
+    """The first ``n_out`` outputs (8: the key) of the LCG variant ``v``
+    (cores/lcg.py) from a u32 seed: a multiply-add a step; glibc masks it
+    (1); minstd takes the wide product (2 results) and folds mod 2^31 - 1
+    twice (5 ALU, 3 adds) and keeps 0 canonical (a compare and a select)."""
     out, s = [], seed
-    for _ in range(8):
+    for _ in range(n_out):
         if v.m == (1 << 31) - 1:
             if s is None:
                 t.mul += 2
@@ -435,14 +435,18 @@ def splitmix64_lane(t: Trace, x):
     return xor64(t, x, shr64(t, x, 31))
 
 
-def xorshift_lane(t: Trace, name: str, hi, lo, n_keys: int = 1):
+def xorshift_lane(t: Trace, name: str, hi, lo, n_keys: int = 1, n_out: int | None = None):
     """The 8 BE words of each of the first ``n_keys`` keys of xorshift
-    variant ``name`` (cores/xorshift.py)."""
+    variant ``name`` (cores/xorshift.py); with ``n_out``, the generator's
+    first ``n_out`` outputs alone (64 bits each, two words; xorshift128's
+    32)."""
+    per_key = 8 if name == "xorshift128" else 4
+    n_out = per_key * n_keys if n_out is None else n_out
     hi, lo = _nonzero(t, hi, lo)
     out = []
     if name == "xorshift64":
         s = (hi, lo)
-        for _ in range(4 * n_keys):
+        for _ in range(n_out):
             s = xor64(t, s, shl64(t, s, 13))
             s = xor64(t, s, shr64(t, s, 7))
             s = xor64(t, s, shl64(t, s, 17))
@@ -451,7 +455,7 @@ def xorshift_lane(t: Trace, name: str, hi, lo, n_keys: int = 1):
         x, y = lo, hi
         z = t.lop(lambda v: v ^ 0x12345678, lo)
         w = t.lop(lambda v: v ^ 0x87654321, hi)
-        for _ in range(8 * n_keys):
+        for _ in range(n_out):
             tt = t.lop(lambda a, b: a ^ b, x, t.shl(x, 11))
             x, y, z = y, z, w
             w = t.lop(_xor3, w, t.shr(w, 19), t.lop(lambda a, b: a ^ b, tt, t.shr(tt, 8)))
@@ -459,7 +463,7 @@ def xorshift_lane(t: Trace, name: str, hi, lo, n_keys: int = 1):
     else:
         s0 = splitmix64_lane(t, (hi, lo))
         s1 = splitmix64_lane(t, s0)
-        for _ in range(4 * n_keys):
+        for _ in range(n_out):
             if name == "xorshift128+":
                 out += list(add64(t, s0, s1))
             else:
@@ -470,11 +474,12 @@ def xorshift_lane(t: Trace, name: str, hi, lo, n_keys: int = 1):
     return out
 
 
-def mt64_lane(t: Trace, hi, lo, n_keys: int = 1):
+def mt64_lane(t: Trace, hi, lo, n_keys: int = 1, n_out: int | None = None):
     """The 8 BE words of each of the first ``n_keys`` keys of MT19937-64
     (cores/mt19937.py): 4 n_keys + 155 init steps, each a 64-bit
-    multiply-add, and 4 n_keys outputs twisted and tempered."""
-    n_out = 4 * n_keys
+    multiply-add, and 4 n_keys outputs twisted and tempered; with ``n_out``,
+    that many outputs (two key words each) alone."""
+    n_out = 4 * n_keys if n_out is None else n_out
     s = (hi, lo)
     taps = {0: s}
     for k in range(1, n_out + 156):
@@ -766,25 +771,46 @@ def _compare_ops(mode: str) -> Ops:
 def sweep_prng(family: str, mode: str, variant: int = 0, big_endian: bool = True,
                reach=(1.0,)) -> Ops:
     """S1 per lane (csrc/sweep_prng.cu): the seed's lattice (an add; the
-    64-bit families also the carry's compare and add), key 0 of the stream
-    and its compare, then for each further key j of a cascade the share
-    ``reach[j]`` of lanes that passed targets 0..j-1: the stream's next key
-    (what the stream of j + 1 keys needs beyond that of j) and its compare."""
+    64-bit families also the carry's compare and add), then
+    - exact: the stream's first output (which holds key word 0) and one
+      compare for every lane, and for the share ``reach[1]`` (0 without it)
+      of lanes whose word 0 passed, the rest of key 0 and its 7 compares;
+      an LCG's output as the generator gives it, since a little-endian
+      key's byteswap folds into the target word, known before the launch;
+      glibc's, msvc's and borland's output 1 is an affine map of the seed
+      mod 2^32 (glibc's doubled, which drops its mask), so a lane's is the
+      lane T seeds before it plus a T, one add with the lattice in it;
+    - mask and cascade: key 0 of the stream and its compare, then for each
+      further key j of a cascade the share ``reach[j]`` of lanes that
+      passed targets 0..j-1: the stream's next key (what the stream of
+      j + 1 keys needs beyond that of j) and its compare.
+    Shares are counted from the run's data."""
     from ..cores import lcg, xorshift
 
-    def stream(n: int) -> Ops:
+    def stream(n: int, n_out: int | None = None) -> Ops:
         t = Trace()
         if family == "milksad":
-            mt19937_lane(t, None, n)
+            mt19937_lane(t, None, n, n_out)
         elif family == "mt64":
-            mt64_lane(t, None, None, n)
+            mt64_lane(t, None, None, n, n_out)
         elif family == "lcg":
-            lcg_lane(t, None, lcg.ALL_VARIANTS[variant], big_endian)
+            lcg_lane(t, None, lcg.ALL_VARIANTS[variant], big_endian, n_out or 8)
         else:
-            xorshift_lane(t, xorshift.VARIANT_NAMES[variant], None, None, n)
+            xorshift_lane(t, xorshift.VARIANT_NAMES[variant], None, None, n, n_out)
         return t.ops
 
     lattice = Ops(add=1) if family in ("milksad", "lcg") else Ops(alu=1, add=2)
+    if mode == "exact":
+        if family == "lcg" and lcg.ALL_VARIANTS[variant].m != (1 << 31) - 1:
+            first = Ops(add=1)
+        elif family == "lcg":
+            t = Trace()
+            lcg_lane(t, None, lcg.ALL_VARIANTS[variant], True, 1)
+            first = lattice + t.ops
+        else:
+            first = lattice + stream(1, 1)
+        rest = lattice + stream(1) - first + Ops(alu=7)
+        return first + Ops(alu=1) + (reach[1] if len(reach) > 1 else 0.0) * rest
     ops = lattice + stream(1) + _compare_ops(mode)
     for j in range(1, len(reach)):
         ops = ops + reach[j] * (stream(j + 1) - stream(j) + _compare_ops(mode))
