@@ -180,7 +180,24 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    equal to the host ``KeyDeriver``'s (every column but ``timestamp``);
    ``scan --storage`` with a planted key: one record, ``matched_target``
    set; ``query`` on a 65,536-record run; E1's launches on every run; then
-   ``benchmark.bench_storage``'s records/s and a superbatch's split.
+   ``benchmark.bench_storage``'s records/s and a superbatch's split;
+11. runs across processes (``parallel/multihost.py``): ranks of one gloo
+   world on a free local port, each a subprocess given the JAX_* variables
+   (``chip_smoke.py --rank REPORT ARGV...``: the command line with its
+   launch counts and sweep results written to REPORT), all on the one card
+   after phase 2's build, each with a time limit:
+   11a. ``analyze --analyzer milksad`` (exact) over 2^32 seeds in two ranks,
+   the key of a seed planted near the end of rank 1's shard, then of one
+   in rank 0's first round: both ranks print the seed and each searched
+   what the protocol says (``protocol_searched``; rank 1 one round in the
+   second); the two ranks' seeds/s beside one process's on the same key;
+   11b. ``scan --transform milksad`` over 2^24 seeds at batch 2^19 in two
+   ranks, a target planted in each shard among phase 5's decoys: each rank
+   its ``Host i/2`` line and its hit, the two ranks' stdout the one-process
+   run's;
+   11c. ``python -m vuke_tpu_torch.parallel.dryrun 4`` (S1 and K1 -> K2 in
+   four ranks) and ``bench_derive`` over every visible card (``devices``);
+   every rank's launch counts join the kernels line.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Every comparison is exact (tolerance 0):
@@ -3105,6 +3122,248 @@ def phase_storage_tail(dev, rng, card: str) -> list:
     return phase_storage(dev, rng, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: runs across processes (parallel/multihost.py), ranks sharing the card
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+RANKS = 2
+RANK_TIMEOUT_S = 150
+ROUND_BATCHES = 8            # multihost.DistributedSweep's default, as dispatch_sweep runs it
+DRYRUN_RANKS = 4
+
+
+@contextlib.contextmanager
+def recorded_sweeps():
+    """Every ``analyze/sweeps.dispatch_sweep`` result of the block, as a
+    list of dicts (found, seed, searched, elapsed)."""
+    from vuke_tpu_torch.analyze import sweeps as psweeps
+
+    results, dispatch = [], psweeps.dispatch_sweep
+
+    def recorded(*args, **kwargs):
+        res = dispatch(*args, **kwargs)
+        results.append({"found": res.found, "seed": res.seed, "searched": res.searched,
+                        "elapsed": res.elapsed})
+        return res
+
+    psweeps.dispatch_sweep = recorded
+    try:
+        yield results
+    finally:
+        psweeps.dispatch_sweep = dispatch
+
+
+def rank_main(report: str, argv: list) -> int:
+    """One rank of phase 11 (``chip_smoke.py --rank REPORT ARGV...``):
+    ``cli.main(argv)`` with every launch count set to 0 just before and
+    read just after, each sweep's result recorded; writes (rc, launches,
+    seconds, sweeps) as JSON to ``REPORT``."""
+    for kern in ALL_KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with recorded_sweeps() as sweeps_run:
+        rc = cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    with open(report, "w") as f:
+        json.dump({"rc": rc, "launches": launch_counts(), "seconds": time.perf_counter() - t0,
+                   "sweeps": sweeps_run}, f)
+    return rc
+
+
+def stop_group(proc: subprocess.Popen) -> None:
+    """Kill ``proc``'s process group (started with ``start_new_session``)
+    if it still runs, and reap ``proc``."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+    proc.wait()
+
+
+def run_ranks(argv: list, what: str, n: int = RANKS) -> list:
+    """``argv`` of the command line in ``n`` rank processes of one gloo world
+    on a free local port, each given the JAX_* variables and run through
+    ``rank_main``: each rank's (stdout, stderr, report, seconds of its
+    process).  Fails if a rank exits non-zero or the ranks outlast
+    ``RANK_TIMEOUT_S``; every rank is stopped either way."""
+    from vuke_tpu_torch.parallel.dryrun import free_port
+
+    port = free_port()
+    out_dir = kernels.BUILD_DIR / "ranks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs, files = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(n):
+            env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(rank))
+            files.append([out_dir / f"{rank}.{ext}" for ext in ("out", "err", "json")])
+            with open(files[-1][0], "w") as o, open(files[-1][1], "w") as e:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--rank",
+                     str(files[-1][2]), *argv], cwd=REPO, env=env, stdout=o, stderr=e,
+                    start_new_session=True))
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        secs = []
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            secs.append(time.perf_counter() - t0)
+    finally:
+        for p in procs:
+            stop_group(p)
+    ranks = []
+    for rank, (p, (out, err, report)) in enumerate(zip(procs, files)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: rank {rank} exited {p.returncode}\n"
+                                 f"{out.read_text()}\n{err.read_text()[-4000:]}")
+        ranks.append((out.read_text(), err.read_text(), json.loads(report.read_text()),
+                      secs[rank]))
+    return ranks
+
+
+def rank_seconds(ranks: list) -> str:
+    """Each rank's seconds in its command (``cli.main``) and in its process
+    (from the start of the first rank)."""
+    command = ", ".join(f"{rep['seconds']:.2f}" for _, _, rep, _ in ranks)
+    process = ", ".join(f"{secs:.2f}" for *_, secs in ranks)
+    return f"seconds per rank: command {command}, process {process}"
+
+
+def protocol_searched(start: int, end: int, world: int, batch: int, seed: int) -> list:
+    """Each rank's searched count under ``DistributedSweep``'s protocol
+    over [start, end] with the one hit at ``seed``: every rank sweeps
+    rounds of ``ROUND_BATCHES`` batches until the round in which the
+    owner of ``seed`` finds it, the owner up to the batch that holds it."""
+    from vuke_tpu_torch.parallel.multihost import partition_range
+
+    shards = partition_range(start, end, world)
+    per_round = batch * ROUND_BATCHES
+    owner = next(h for h, s in enumerate(shards) if s.start <= seed <= s.end)
+    off = seed - shards[owner].start
+    stop = off // per_round
+    return [min(s.count, stop * per_round + (off % per_round // batch + 1) * batch
+                if h == owner else (stop + 1) * per_round)
+            for h, s in enumerate(shards)]
+
+
+def phase_ranks_analyze(rng, card: str) -> list:
+    """11a: ``analyze --analyzer milksad`` (exact) over the whole 2^32 space
+    in two ranks on the card, the key from a seed planted near the end of
+    rank 1's shard, then one in rank 0's first round: both ranks print the
+    seed, each searched what the protocol says (in the second, rank 1 one
+    round), and the two ranks' seeds/s beside one process's on the first
+    key; every run's launches."""
+    runs = []
+    per_round = CARD_SWEEP_BATCH * ROUND_BATCHES
+    cases = (("planted near the end of rank 1's shard", SPACE - 1 - int(rng.integers(0, 1 << 16))),
+             ("planted in rank 0's first round", int(rng.integers(0, per_round))))
+    for i, (what, seed) in enumerate(cases):
+        argv = ["analyze", "0x" + host_milksad_key(seed).hex(), "--analyzer", "milksad"]
+        want = protocol_searched(0, SPACE - 1, RANKS, CARD_SWEEP_BATCH, seed)
+        if i == 1 and want[1] != per_round:
+            raise AssertionError(f"11a: the protocol's model gives rank 1 {want[1]} seeds")
+        ranks = run_ranks(argv, f"11a analyze, {what}")
+        for rank, (text, log, rep, secs) in enumerate(ranks):
+            got = result_line(text, "milksad")
+            searched = [s["searched"] for s in rep["sweeps"]]
+            if (got != f"CONFIRMED (seed = {seed})" or searched != [want[rank]]
+                    or "Running milksad (brute-force)...\n" not in log):
+                raise AssertionError(f"11a {what}: rank {rank} printed {got!r}, searched "
+                                     f"{searched} (protocol: {want[rank]})\n{log[-2000:]}")
+            runs.append(rep["launches"])
+        window = max(rep["sweeps"][0]["elapsed"] for _, _, rep, _ in ranks)
+        say(f"[11a ranks] analyze milksad exact, {what} (seed {seed}): both ranks CONFIRMED, "
+            f"searched {want} as the protocol says; sweep {sum(want) / window:.4g} seeds/s for "
+            f"the two ranks together ({sum(want)} seeds, slowest rank's sweep {window:.3f} s); "
+            f"{rank_seconds(ranks)}; launches S1 "
+            f"{[rep['launches']['sweep_prng'] for _, _, rep, _ in ranks]} [{card}]")
+        if i == 0:
+            with recorded_sweeps() as one:
+                rc, text, log, launches, secs = run_cli(argv)
+            if rc != 0 or result_line(text, "milksad") != f"CONFIRMED (seed = {seed})":
+                raise AssertionError(f"11a one process: rc {rc}\n{text}")
+            runs.append(launches)
+            say(f"[11a one process] the same command: sweep "
+                f"{one[0]['searched'] / one[0]['elapsed']:.4g} seeds/s ({one[0]['searched']} "
+                f"seeds in {one[0]['elapsed']:.3f} s); two ranks / one process "
+                f"{(sum(want) / window) / (one[0]['searched'] / one[0]['elapsed']):.3f} [{card}]")
+    return runs
+
+
+def phase_ranks_scan(rng, card: str, decoys: list) -> list:
+    """11b: ``scan --transform milksad`` over 2^24 seeds at batch 2^19 in two
+    ranks, a target planted in each shard among phase 5's decoys: each rank
+    its ``Host i/2`` line and its one hit, the ranks' hits together the
+    one-process run's stdout; every run's launches."""
+    start = 3_500_000_000
+    end = start + (1 << 24) - 1
+    half = 1 << 23
+    planted = [int(rng.integers(start, start + half)), int(rng.integers(start + half, end + 1))]
+    targets = [p2pkh_address(host_h160s(int.from_bytes(host_milksad_key(s), "big") % N or 1)[0])
+               for s in planted]
+    path = write_targets("ranks_targets.txt", targets, decoys)
+    argv = ["scan", "--transform", "milksad", "--targets", path, "--batch", str(BATCH),
+            "range", "--start", str(start), "--end", str(end)]
+    rc, text, log, launches, secs = run_cli(argv)
+    if rc != 0 or sorted(int(s) for s, _ in hit_sources(text)) != planted:
+        raise AssertionError(f"11b one process: rc {rc}, hits {hit_sources(text)}\n{log}")
+    runs = [launches]
+    ranks = run_ranks(argv, "11b scan")
+    for rank, (out, err, rep, _) in enumerate(ranks):
+        lo = start + rank * half
+        host = f"Host {rank}/{RANKS}: seeds [{lo}, {lo + half - 1}]\n"
+        done = f"Done. Inputs: {half}, Keys: {half}, Matches: 1\n"
+        if ([int(s) for s, _ in hit_sources(out)] != [planted[rank]] or host not in err
+                or done not in err):
+            raise AssertionError(f"11b rank {rank}: hits {hit_sources(out)}\n{err[-2000:]}")
+        check_launches(f"11b rank {rank}", rep["launches"],
+                       {name: None for name in MILKSAD_PATH} | {"normalize": half // BATCH})
+        runs.append(rep["launches"])
+    if "".join(out for out, *_ in ranks) != text:
+        raise AssertionError("11b: the ranks' hits are not the one-process run's stdout")
+    say(f"[11b ranks] scan milksad [{start}, {end}] (batch {BATCH}) in {RANKS} ranks: hits "
+        f"{planted} == one process's, each rank its Host line; {rank_seconds(ranks)} (one "
+        f"process, in this one: {secs:.2f} s) [{card}]")
+    return runs
+
+
+def phase_ranks_dryrun(card: str) -> list:
+    """11c: ``python -m vuke_tpu_torch.parallel.dryrun 4`` on the card (its
+    step lines, hits 0, the planted seed found; its ranks' launches), then
+    ``bench_derive`` over every visible card."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "vuke_tpu_torch.parallel.dryrun",
+                             str(DRYRUN_RANKS), "--device", "cuda", "--timeout", "120"],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=RANK_TIMEOUT_S)
+    finally:
+        stop_group(proc)
+    secs = time.perf_counter() - t0
+    lines = out.splitlines()
+    space = 4 * 32 * DRYRUN_RANKS
+    if proc.returncode != 0 or len(lines) != 3:
+        raise AssertionError(f"11c dryrun: rc {proc.returncode}\n{out}\n{err[-4000:]}")
+    rep = json.loads(lines[2])
+    if (not lines[0].startswith("[dryrun 1/2]") or not lines[1].startswith("[dryrun 2/2]")
+            or rep["ranks"] != DRYRUN_RANKS or rep["hits"] != 0
+            or rep["found"] != space // 2 + 3):
+        raise AssertionError(f"11c dryrun:\n{out}")
+    # a rank registers the kernels of the modules it imports; the others ran 0 times
+    launches = {name: rep["launches"].get(name, 0) for name in ALL_KERNELS}
+    check_launches("11c dryrun", launches,
+                   {name: None for name in MILKSAD_PATH + ("sweep_prng",)})
+    b = bench_derive()
+    if b["devices"] != torch.cuda.device_count():
+        raise AssertionError(f"11c bench_derive: devices {b['devices']}")
+    say(f"[11c dryrun] {DRYRUN_RANKS} ranks on the card: {lines[0]} / {lines[1]}; "
+        f"{secs:.2f} s; launches {launches} [{card}]")
+    say(f"[11c bench_derive] every visible card: devices {b['devices']}, "
+        f"{b['derivations_per_sec']:.4g} derivations/s (windows {b['window_ms']} ms) [{card}]")
+    return [launches]
+
+
 class Run:
     """What the phases share and fill in: the card, the build's SASS counts,
     each kernel's max abs error against its plain version and its times
@@ -3146,6 +3405,11 @@ def run_sweeps(r: Run):
     r.errs |= errs
     r.times |= times
 
+
+def run_processes(r: Run):
+    r.runs.extend(phase_ranks_analyze(r.rng, r.card))
+    r.runs.extend(phase_ranks_scan(r.rng, r.card, r.decoys))
+    r.runs.extend(phase_ranks_dryrun(r.card))
 
 # (tag, what, step) in the run's order; the tags are the phase numbers of
 # the module's docstring
@@ -3190,6 +3454,7 @@ PHASES = (
                                                                       r.decoys))),
     ("10a", "E1", run_records),
     ("10b", "storage tail", lambda r: r.runs.extend(phase_storage_tail(r.dev, r.rng, r.card))),
+    ("11", "processes", run_processes),
 )
 
 
@@ -3252,4 +3517,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -444,3 +444,58 @@ def test_records_launch_refuses_a_long_hrp(dev):
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         records.KERNEL.launch(dev, w.data_ptr(), h.data_ptr(), h.data_ptr(), 0, 0x80, 0, 5, 1,
                               rows.data_ptr(), 32)
+
+
+# --- runs across processes and cards (parallel/multihost.py) ---
+
+def test_require_cuda_returns_the_card_it_checks():
+    from vuke_tpu_torch._device import require_cuda
+
+    n = torch.cuda.device_count()
+    assert require_cuda(n - 1) == torch.device("cuda", n - 1)
+    with pytest.raises(RuntimeError, match=f"no CUDA device {n} "):
+        require_cuda(n)
+
+
+def test_caches_are_keyed_by_the_indexed_card(dev):
+    """"cuda" (the current card) and the indexed card are one entry."""
+    from vuke_tpu_torch._device import device_key
+
+    with torch.cuda.device(dev):
+        assert device_key("cuda") == str(dev)
+        assert smul.table_on(device_key("cuda")) is smul.table_on(device_key(dev))
+        assert inc.offset_table(1024, "cuda") is inc.offset_table(1024, dev)
+
+
+def test_two_ranks_share_the_card():
+    """``analyze --analyzer milksad`` in two gloo ranks on card 0 over 2^24
+    seeds at batch 2^20, the seed planted in rank 1's shard: both ranks
+    print it."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    seed = (1 << 23) + 12345
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = [sys.executable, "-m", "vuke_tpu_torch", "analyze",
+            "0x" + chip_smoke.host_milksad_key(seed).hex(), "--analyzer", "milksad",
+            "--max-seeds", str(1 << 24), "--batch", str(1 << 20)]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(argv, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True,
+                              env=dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                                       JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank)))
+             for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert f"milksad: CONFIRMED (seed = {seed})" in out

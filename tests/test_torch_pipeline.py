@@ -162,7 +162,8 @@ assert {'vuke_tpu_torch.cores.' + m for m in ('common', 'decimal', 'sha256', 'md
 assert {'vuke_tpu_torch.transforms.numeric', 'vuke_tpu_torch.transforms.registry'} <= set(names)
 assert {'vuke_tpu_torch.' + m for m in ('transforms.strings', 'cores.digest', 'cores.p2pkh',
         'output', 'output.console', 'output.multi', 'progress', 'parallel',
-        'parallel.checkpoint', 'sources')} <= set(names), names
+        'parallel.checkpoint', 'parallel.multihost', 'parallel.mesh', 'parallel.dryrun',
+        'sources')} <= set(names), names
 assert {'vuke_tpu_torch.' + m for m in ('provider', 'analyze', 'analyze.analyzers',
         'analyze.key_parser', 'analyze.output', 'analyze.sweeps', 'cores.sweep')} <= set(names)
 assert {'vuke_tpu_torch.' + m for m in ('storage', 'storage.records', 'storage.parquet_backend',

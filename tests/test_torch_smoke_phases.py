@@ -10,7 +10,8 @@ import chip_smoke
 def test_every_phase_without_the_option():
     tags = chip_smoke.parse_phases([])
     assert tags == [tag for tag, _, _ in chip_smoke.PHASES] and len(tags) == len(set(tags))
-    assert {"7b", "7f", "10a", "10b"} <= set(tags)
+    assert {"7b", "7f", "10a", "10b", "11"} <= set(tags)
+    assert tags[-1] == "11" and chip_smoke.parse_phases(["--phases", "11"]) == ["11"]
 
 
 def test_a_selection_runs_in_the_run_order():
@@ -63,3 +64,21 @@ def test_the_whole_run_needs_every_kernel():
     r = _run(["p2pkh"], [{"p2pkh": 1}])
     with pytest.raises(AssertionError, match="no times for"):
         chip_smoke.kernels_line(r, every=True)
+
+
+@pytest.mark.parametrize("seed, want", [
+    ((1 << 32) - 17, [1 << 31, 1 << 31]),            # rank 1's last batch: every round
+    (5 * (1 << 24) + 3, [6 << 24, 8 << 24]),          # rank 0's first round: one round each
+    ((1 << 31) + (9 << 24), [2 << 27, (1 << 27) + (2 << 24)]),   # rank 1's second round
+])
+def test_phase_11_protocol_model(seed, want):
+    """11a's expected searched counts: milksad's 2^32 seeds over 2 ranks at
+    batch 2^24, rounds of 8 batches."""
+    assert chip_smoke.protocol_searched(0, (1 << 32) - 1, 2, 1 << 24, seed) == want
+
+
+def test_phase_11_protocol_model_at_a_shard_end():
+    """Batches clipped by a shard's end: [0, 4096] at batch 1024, rounds of
+    8 batches over 2 ranks (2049 and 2048 seeds)."""
+    assert chip_smoke.protocol_searched(0, 4096, 2, 1024, 2048) == [2049, 2048]
+    assert chip_smoke.protocol_searched(0, 4096, 2, 1024, 4096) == [2049, 2048]

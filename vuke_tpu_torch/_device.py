@@ -13,16 +13,50 @@ import torch
 MASK32 = 0xFFFFFFFF
 
 
-def require_cuda() -> torch.device:
-    """The H100 the kernels are built for, or raise."""
+def require_cuda(index: int = 0) -> torch.device:
+    """Card ``index``, an H100 the kernels are built for, or raise."""
     if not torch.cuda.is_available():
         raise RuntimeError("vuke_tpu_torch: no CUDA device is available")
-    cap = torch.cuda.get_device_capability(0)
+    count = torch.cuda.device_count()
+    if not 0 <= index < count:
+        raise RuntimeError(f"vuke_tpu_torch: no CUDA device {index} ({count} visible)")
+    cap = torch.cuda.get_device_capability(index)
     if cap != (9, 0):
         raise RuntimeError(
-            f"vuke_tpu_torch: kernels target sm_90a (Hopper); device 0 "
-            f"{torch.cuda.get_device_name(0)!r} has capability {cap}")
-    return torch.device("cuda", 0)
+            f"vuke_tpu_torch: kernels target sm_90a (Hopper); device {index} "
+            f"{torch.cuda.get_device_name(index)!r} has capability {cap}")
+    return torch.device("cuda", index)
+
+
+def rank_device() -> torch.device:
+    """This process's card: rank r of a torch.distributed world runs on
+    ``cuda:{r % device_count}`` (``parallel/multihost.py``), a process
+    outside one on card 0; raise without a card."""
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("vuke_tpu_torch: no CUDA device is available")
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    return require_cuda(rank % torch.cuda.device_count())
+
+
+def run_device(device) -> torch.device:
+    """The device a command runs on (``--device``): a bare "cuda" is this
+    process's card (``rank_device``), "cuda:i" card i (checked), "cpu" the
+    plain versions."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    return rank_device() if dev.index is None else require_cuda(dev.index)
+
+
+def device_key(device) -> str:
+    """The key of a per-device cache: the indexed device, so that "cuda"
+    (the current card) and "cuda:0" are one entry when card 0 is current."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
 
 
 def i64(words: torch.Tensor) -> torch.Tensor:

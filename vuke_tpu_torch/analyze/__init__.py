@@ -15,6 +15,8 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
+import torch
+
 from .analyzers import (  # noqa: F401
     AnalysisConfig, AnalysisResult, AnalysisStatus, DirectAnalyzer,
     HeuristicAnalyzer, KeyMetadata, LcgAnalyzer, MilksadAnalyzer,
@@ -84,7 +86,7 @@ def run_analyze(key_str: str, fast: bool = False, mask: Optional[int] = None,
     if batch is None:
         # the JAX rule "accelerator -> 2^24": one launch a batch, so a
         # smaller batch spends the card's time on the host's round trip
-        batch = CARD_SWEEP_BATCH if device == "cuda" else DEFAULT_SWEEP_BATCH
+        batch = CARD_SWEEP_BATCH if torch.device(device).type == "cuda" else DEFAULT_SWEEP_BATCH
     config = AnalysisConfig(mask_bits=mask, batch=batch, max_seeds=max_seeds,
                             checkpoint_path=checkpoint, device=device)
 

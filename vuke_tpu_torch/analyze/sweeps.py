@@ -10,8 +10,8 @@ record comes to the host through a pinned row (``pipeline.StatsRing``),
 so the loop waits on that batch's copy alone.
 
 The JAX package's ``_xla_fallback_step`` has no counterpart: a kernel that
-fails to build or launch raises.  Its multi-host branch of
-``dispatch_sweep`` waits for the multi-host port.
+fails to build or launch raises.  In a world of several processes
+``dispatch_sweep`` runs ``parallel/multihost.DistributedSweep``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .._device import run_device
 from ..cores import sweep as S
 from ..pipeline import StatsRing
 
@@ -36,12 +37,6 @@ class SweepResult:
     searched: int
     elapsed: float
     cascade_hits: int = 0
-
-
-def _device(device) -> torch.device:
-    from .._device import require_cuda
-    dev = torch.device(device if device is not None else "cuda")
-    return require_cuda() if dev.type == "cuda" else dev
 
 
 class _Program:
@@ -60,7 +55,7 @@ class _Program:
             self._fixed = S.Compare("cascade", targets=tuple(map(tuple, cascade)),
                                     track=track_first_filter)
         self._exact = {}
-        self.device = _device(device)
+        self.device = run_device(device if device is not None else "cuda")
         # one record serves every batch: the stream orders a batch's reset
         # after the previous batch's copy
         self._record = torch.empty(2, dtype=torch.int64, device=self.device)
@@ -134,11 +129,13 @@ def dispatch_sweep(program, space_start: int, space_end: int, *,
                    target_words=None, progress=None,
                    max_seeds: Optional[int] = None, decode=None,
                    config=None, job: str = "") -> SweepResult:
-    """Sweep with optional durable checkpointing.
+    """Sweep with optional durable checkpointing / multi-process distribution.
 
     - ``config.checkpoint_path`` set -> resume from / record to an atomic
       manifest keyed by ``job`` (parallel/checkpoint.py), so a preempted
       brute-force continues instead of restarting from zero.
+    - ``multihost.process_count() > 1`` -> static per-rank shard with the
+      early stop across ranks (parallel/multihost.DistributedSweep).
     - otherwise the plain pipelined early-exit sweep.
     """
     if max_seeds is not None:
@@ -150,6 +147,13 @@ def dispatch_sweep(program, space_start: int, space_end: int, *,
         return checkpointed_sweep(program, space_start, space_end, ckpt,
                                   target_words=target_words, progress=progress,
                                   decode=decode)
+    from ..parallel.multihost import DistributedSweep, process_count
+    if process_count() > 1:
+        t0 = time.time()
+        seed, searched = DistributedSweep(program).run(
+            space_start, space_end, target_words=target_words,
+            progress=progress, decode=decode)
+        return SweepResult(seed is not None, seed, searched, time.time() - t0)
     return sweep(program, space_start, space_end, target_words=target_words,
                  progress=progress, decode=decode)
 

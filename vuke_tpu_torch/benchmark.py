@@ -4,7 +4,9 @@
   seeds -> K1 -> normalize -> K3 (or K6 with ``smul13`` off, as
   ``VUKE_TPU_SMUL13=0`` selects) -> K4 -> K2 -> fragments, under the JAX
   package's metric name ``seed_to_hash160_derivations_per_sec`` for either
-  kernel; the result's ``smul`` names the kernel;
+  kernel, on every visible card (``parallel/mesh.py``: each card its
+  contiguous slice of the global batch); the result's ``smul`` names the
+  kernel and ``devices`` counts the cards;
 - ``bench_sequential``, port of ``vuke_tpu.benchmark.bench_sequential``:
   contiguous keys -> K5 -> K4 -> K2 -> fragments from a cached offset
   table, the base point stepped on the host inside the timed window,
@@ -55,7 +57,7 @@ import time
 import numpy as np
 import torch
 
-from ._device import i64, require_cuda, u32
+from ._device import device_key, i64, require_cuda, u32
 from .cores import hash160, keygen, mt19937
 from .derive import KeyDeriver
 from .ecc import incremental as inc
@@ -65,6 +67,7 @@ from .ecc.tiled import derive_hash160s_tiled, use_smul13
 from .kernels import Kernel
 from .cores import p2pkh
 from .matcher import TargetPools
+from .parallel import mesh
 from .output import ConsoleOutput
 from .pipeline import ORDER_BATCH, ForwardDriver, StringDriver
 from .transforms import parse_transform
@@ -90,14 +93,48 @@ def time_cuda(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _derive_step(dev: torch.device, batch: int, smul13: bool):
-    """A callable deriving a fresh batch of ``batch`` seeds per call."""
-    offsets = torch.arange(batch, dtype=torch.int64, device=dev)
+def time_cards(steps, iters: int = 10, warmup: int = 2) -> float:
+    """Mean milliseconds per call of the slowest card: ``steps`` is a list
+    of (card, ``fn``); CUDA events on each card's current stream around
+    ``iters`` rounds of one ``fn()`` a card, after ``warmup`` rounds, every
+    card launched before any is waited on.  With one card it is
+    ``time_cuda``."""
+    def rounds(n):
+        for _ in range(n):
+            for dev, fn in steps:
+                with torch.cuda.device(dev):
+                    fn()
+
+    rounds(warmup)
+    for dev, _ in steps:
+        torch.cuda.synchronize(dev)
+    events = []
+    for dev, _ in steps:
+        with torch.cuda.device(dev):
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+    rounds(iters)
+    for (dev, _), (_, end) in zip(steps, events):
+        with torch.cuda.device(dev):
+            end.record()
+    for dev, _ in steps:
+        torch.cuda.synchronize(dev)
+    return max(start.elapsed_time(end) for start, end in events) / iters
+
+
+def _derive_step(dev: torch.device, batch: int, smul13: bool, first: int = 0,
+                 stride: int | None = None):
+    """A callable deriving a fresh batch of ``batch`` seeds per call: call i
+    the seeds ``first + i * stride + j``, j < ``batch`` (``stride``: the
+    global batch a call, default ``batch``)."""
+    offsets = torch.arange(first, first + batch, dtype=torch.int64, device=dev)
+    stride = batch if stride is None else stride
     state = {"i": 0}
 
     def step():
         state["i"] += 1
-        seeds = u32(offsets + state["i"] * batch)
+        seeds = u32(offsets + state["i"] * stride)
         return derive_hash160s_tiled(seeds, smul13=smul13)["frag_c"][0]
 
     return step
@@ -118,10 +155,10 @@ def _sequential_step(dev: torch.device, batch: int, table):
     return step
 
 
-def _rate(metric: str, step, batch: int, iters: int, dev) -> dict:
+def _rate(metric: str, step, batch: int, iters: int, dev, timer=time_cuda) -> dict:
     """The best of 3 measured windows (each ``iters`` calls on fresh keys,
     the first after 3 warm-up calls), with every window's time beside it."""
-    window_ms = [time_cuda(step, iters=iters, warmup=3 if w == 0 else 0)
+    window_ms = [timer(step, iters=iters, warmup=3 if w == 0 else 0)
                  for w in range(3)]
     ms = min(window_ms)
     return {
@@ -139,11 +176,17 @@ def bench_derive(batch: int = 1 << 19, iters: int = 20,
                  smul13: bool | None = None) -> dict:
     """Full milksad seed -> hash160 derive rate at ``batch`` seeds per call,
     through K3 or K6 (``smul13``; None reads the environment,
-    ``ecc/tiled.use_smul13``)."""
-    dev = require_cuda()
+    ``ecc/tiled.use_smul13``), over every visible card: each derives its
+    contiguous slice of the global batch on its own stream
+    (``time_cards``), and the rate is the global batch over the slowest
+    card's window."""
+    devices = mesh.get_devices()
     smul13 = use_smul13(smul13)
-    out = _rate(METRIC, _derive_step(dev, batch, smul13), batch, iters, dev)
+    steps = [(dev, _derive_step(dev, n, smul13, first, batch))
+             for dev, first, n in mesh.split_seeds(batch, devices)]
+    out = _rate(METRIC, steps, batch, iters, devices[0], timer=time_cards)
     out["smul"] = "smul" if smul13 else "smul_w8"
+    out["devices"] = len(devices)
     return out
 
 
@@ -159,6 +202,8 @@ def bench_sequential(batch: int = 1 << 19, iters: int = 20) -> dict:
     out = _rate(SEQ_METRIC, _sequential_step(dev, batch, table), batch, iters, dev)
     out["offset_table_seconds"] = table_s
     out["start"] = SEQ_START
+    # the visible cards, as the JAX package reports them; the rate is card 0's
+    out["devices"] = torch.cuda.device_count()
     return out
 
 
@@ -318,7 +363,7 @@ def kernel_cases(dev, seeds: torch.Tensor) -> dict:
     raw = mt19937.milksad_key_words(seeds)
     raws = [raw] + [mt19937.milksad_key_words(u32(i64(seeds) + i * batch)) for i in (1, 2, 3)]
     norm = mt19937.milksad_key_words(seeds, normalize=True)
-    table, table_w8 = smul.table_on(str(dev)), smul_w8.table_on(str(dev))
+    table, table_w8 = smul.table_on(device_key(dev)), smul_w8.table_on(device_key(dev))
     outs = smul.scalar_mul(norm)
     x, y = inv.affine(*outs)
     offx, offy = inc.offset_table(batch, dev)

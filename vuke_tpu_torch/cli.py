@@ -51,7 +51,12 @@ device commands run on the CPU (``--device cpu``), ``single`` and
 ``benchmark.run_benchmark``).  ``VUKE_TPU_SMUL13=0`` in
 the environment switches the scalar multiplication from K3 to K6 and
 ``VUKE_TPU_SEQUENTIAL=0`` turns the sequential path off, as they do for
-the JAX package.
+the JAX package.  With ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``
+and ``JAX_PROCESS_ID`` set, ``generate``, ``scan`` and ``analyze`` join a
+gloo world of that many processes (``parallel/multihost.py``): rank r runs
+on ``cuda:{r % device_count}``, takes its shard of a range or timestamps
+source (``Host r/n: seeds [a, b]`` on stderr, ``--checkpoint PATH.h{r}``)
+or of each brute-force space, as the JAX package's processes do.
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ import time
 import torch
 
 from . import encode
-from ._device import require_cuda
+from ._device import run_device
 from .derive import KeyDeriver
 from .matcher import TargetPools
 from .output import ConsoleOutput
@@ -186,10 +191,6 @@ def _post_run_storage(args, storage_output):
                           files=files)
 
 
-def _device(name: str) -> torch.device:
-    return require_cuda() if name == "cuda" else torch.device(name)
-
-
 def _parse_specs(names, args=None):
     """The specs of ``--transform`` values; ``bitimage`` takes the
     ``--bitimage-*`` options of ``args`` (``vuke_tpu/cli.py:236-252``)."""
@@ -250,17 +251,27 @@ def _make_source(args):
 
 def _run_forward(args, specs, source, pools) -> int:
     """generate (``pools`` None) or scan over ``source``: the port of
-    ``vuke_tpu/cli.py::_run_forward``."""
+    ``vuke_tpu/cli.py::_run_forward``.  In a world of several processes
+    (``parallel/multihost.py``) each rank takes its own shard of a range
+    or timestamps source, and its checkpoint path gains ``.h{rank}``; the
+    other sources run whole on every rank."""
     from .parallel.checkpoint import SweepCheckpoint
+    from .parallel.multihost import maybe_initialize_distributed, partition_range
     from .sources import RangeSource, TimestampSource
 
     deriver = KeyDeriver(encode.parse_network(args.network))
     transforms = args.transform or ["sha256"]
-    dev = _device(args.device)
+    pidx, pcount = maybe_initialize_distributed()
+    dev = run_device(args.device)
     out, storage = _build_outputs(args)
     print("Scanning..." if pools is not None else "Generating keys...", file=sys.stderr)
     label = "scan" if pools is not None else "generate"
     ranged = isinstance(source, (RangeSource, TimestampSource))
+    if pcount > 1 and ranged:
+        # static per-rank ownership of the seed range (multihost.py)
+        shard = partition_range(source.start, source.end, pcount, pidx)
+        print(f"Host {pidx}/{pcount}: seeds [{shard.start}, {shard.end}]", file=sys.stderr)
+        source = dataclasses.replace(source, start=shard.start, end=shard.end)
     fwd = None
     if ranged:
         total = source.end - source.start + 1
@@ -279,7 +290,10 @@ def _run_forward(args, specs, source, pools) -> int:
     ckpt = None
     if args.checkpoint_path and ranged:
         job = f"{label}:{','.join(sorted(transforms))}:{source.start}-{source.end}"
-        ckpt = SweepCheckpoint.load(args.checkpoint_path, job)
+        path = args.checkpoint_path
+        if pcount > 1:
+            path = f"{path}.h{pidx}"
+        ckpt = SweepCheckpoint.load(path, job)
     if ckpt is not None:
         stats = ProcessStats()
         chunk = order * 16
@@ -384,7 +398,7 @@ def cmd_warmup(args) -> int:
     (``vuke_tpu/cli.py:448-455``)."""
     from .kernels import Kernel
 
-    dev = _device(args.device)
+    dev = run_device(args.device)
     b = args.batch or DEFAULT_BATCH
     pools = TargetPools.from_addresses(["1BgGZ9tcN4rm9KBzDn7KprQz87SZ26SAMH"])
     for t in args.transform or ["milksad", "direct"]:
@@ -407,18 +421,23 @@ def cmd_warmup(args) -> int:
 
 
 def cmd_analyze(args) -> int:
-    """``analyze KEY``: ``vuke_tpu/cli.py:543-575`` and ``run_analyze``."""
+    """``analyze KEY``: ``vuke_tpu/cli.py:543-575`` and ``run_analyze``; in
+    a world of several processes (``parallel/multihost.py``, joined here,
+    where JAX's runtime finds a pod's processes by itself) each rank sweeps
+    its shard of every brute-force space."""
     from .analyze import run_analyze
+    from .parallel.multihost import maybe_initialize_distributed
 
     if args.mask is not None and not 1 <= args.mask <= 64:
         _usage_error(f"Invalid value for '--mask': {args.mask} is not in the range 1<=x<=64.")
-    dev = _device(args.device)
+    maybe_initialize_distributed()
+    dev = run_device(args.device)
     run_analyze(key_str=args.key, fast=args.fast, mask=args.mask, cascade=args.cascade,
                 analyzers=list(args.analyzers or ()), mnemonic=args.mnemonic,
                 mnemonic_file=args.mnemonic_file, passphrase=args.passphrase,
                 chain_depth=args.chain_depth, puzzle=args.puzzle, verify=args.verify,
                 as_json=args.as_json, batch=args.batch, max_seeds=args.max_seeds,
-                checkpoint=args.checkpoint_path, device=dev.type)
+                checkpoint=args.checkpoint_path, device=str(dev))
     return 0
 
 

@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._device import MASK32, byteswap32
+from .._device import MASK32, byteswap32, device_key
 from ..kernels import INT, PTR, SIZE, U32, Kernel
 from . import lcg, mt19937, sha256_chain, xorshift
 
@@ -122,7 +122,7 @@ def device_targets(compare: Compare, device: str):
 
 
 def _targets_ptr(compare: Compare, device: torch.device) -> int:
-    t = device_targets(compare, str(device))
+    t = device_targets(compare, device_key(device))
     return 0 if t is None else t.data_ptr()
 
 

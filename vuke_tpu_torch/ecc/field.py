@@ -23,7 +23,7 @@ import functools
 
 import torch
 
-from .._device import check_same_device, check_words
+from .._device import check_same_device, check_words, device_key
 from ..kernels import PTR, SIZE, Kernel
 from .ref import P
 
@@ -55,13 +55,13 @@ def _negation_pad() -> list[int]:
 _PAD = _negation_pad()
 
 
-@functools.lru_cache(maxsize=4)
-def _pad_on(device: torch.device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _pad_on(device: str) -> torch.Tensor:
     return torch.tensor(_PAD, dtype=torch.int64, device=device)[:, None]
 
 
 def _pad_tensor(like: torch.Tensor) -> torch.Tensor:
-    return _pad_on(like.device)
+    return _pad_on(device_key(like.device))
 
 
 def _carry(r: torch.Tensor, rounds: int) -> torch.Tensor:

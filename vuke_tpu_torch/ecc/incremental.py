@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from .._device import MASK32, check_same_device, check_words, i64, u32
+from .._device import MASK32, check_same_device, check_words, device_key, i64, u32
 from ..cores import hash160
 from ..kernels import PTR, SIZE, Kernel
 from . import field as F
@@ -86,7 +86,7 @@ def build_offset_table(n: int, device, smul13: bool | None = None
     return tuple(u32(i64(a).flip(0)).contiguous() for a in (x, y))
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=None)
 def _cached_table(n: int, device: str, smul13: bool):
     return build_offset_table(n, device, smul13)
 
@@ -94,10 +94,11 @@ def _cached_table(n: int, device: str, smul13: bool):
 def offset_table(n: int, device, smul13: bool | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """``build_offset_table`` once per (n, device, kernel), kept for reuse:
-    64 bytes a lane, 32 MiB at n = 2^19.  The key holds the resolved
-    ``smul13``, so a run's launch counts show the kernel that built its
-    table."""
-    return _cached_table(n, str(torch.device(device)), use_smul13(smul13))
+    64 bytes a lane, 32 MiB at n = 2^19; a run holds one a card it scans
+    on.  The key holds the indexed device (``_device.device_key``) and the
+    resolved ``smul13``, so a run's launch counts show the kernel that
+    built its table."""
+    return _cached_table(n, device_key(device), use_smul13(smul13))
 
 
 def _check_base(bx: int, by: int):

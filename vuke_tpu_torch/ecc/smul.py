@@ -18,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from .._device import MASK32, check_same_device, check_words, i64
+from .._device import MASK32, check_same_device, check_words, device_key, i64
 from ..kernels import PTR, SIZE, Kernel
 from . import field as F
 from . import ref
@@ -67,9 +67,10 @@ def window_table() -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=None)
 def table_on(device: str) -> torch.Tensor:
-    """The window table as a uint32 tensor on ``device`` (kept for reuse)."""
+    """The window table as a uint32 tensor on ``device`` (kept for reuse,
+    one a device; ``_device.device_key`` names the device)."""
     return torch.from_numpy(window_table()).to(device)
 
 
@@ -152,7 +153,7 @@ def scalar_mul(words: torch.Tensor):
     prologue); a CPU tensor through the plain version."""
     n = check_words(words, 8, "words")
     dev = check_same_device(words)
-    table = table_on(str(dev))
+    table = table_on(device_key(dev))
     if dev.type == "cpu":
         return scalar_mul_plain(words, table)
     outs = [torch.empty((8, n), dtype=torch.uint32, device=dev) for _ in range(4)]

@@ -23,6 +23,7 @@ import os
 
 import torch
 
+from .._device import device_key
 from ..cores import hash160, mt19937
 from . import inv, smul, smul_w8
 from .scalar import normalize_words, normalize_words_plain
@@ -44,7 +45,7 @@ def _stages(plain: bool, smul13: bool | None):
     mod = smul if use_smul13(smul13) else smul_w8
     if plain:
         return (mt19937.milksad_key_words_plain, normalize_words_plain,
-                lambda w: mod.scalar_mul_plain(w, mod.table_on(str(w.device))),
+                lambda w: mod.scalar_mul_plain(w, mod.table_on(device_key(w.device))),
                 inv.affine_plain, hash160.hash160s_and_fragments_plain)
     return (mt19937.milksad_key_words, normalize_words, mod.scalar_mul, inv.affine,
             hash160.hash160s_and_fragments)

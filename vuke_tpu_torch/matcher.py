@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import encode
+from ._device import device_key
 from .derive import DerivedKey
 
 
@@ -118,7 +119,7 @@ class TargetPools:
         return None
 
     def on(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-        key = str(device)
+        key = device_key(device)
         if key not in self._on_device:
             self._on_device[key] = (torch.from_numpy(self.comp).to(device),
                                     torch.from_numpy(self.uncomp).to(device))
