@@ -1,0 +1,21 @@
+"""The cascade sweep's kernel across the ranks against its bound: the
+least time a card needs for its share of the seeds the traced jobs'
+verdicts needed (``portbench/work.py``'s sweep count for the family and
+compare, at the published peak) over the sweep kernel's device time,
+averaged over the cards."""
+
+from portbench import work
+
+KERNELS = ("sweep_prng_kernel",)
+
+
+def read(rec: dict):
+    trace, sw = rec.get("trace"), rec.get("sweep")
+    if trace is None or not sw:
+        return None
+    t = trace.seconds_of(KERNELS)
+    if t <= 0:
+        return None
+    reach = (1.0, 0.0)          # a lane whose first compare passes is one in 2^32 or fewer
+    ops = work.sweep_prng(sw["family"], sw["mode"], reach)
+    return 100.0 * ops.seconds(sw["seeds_per_chip"]) / t
