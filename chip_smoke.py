@@ -35,7 +35,8 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    its plain PyTorch version on the card at N = 16384, lane-exact, on
    adversarial inputs, and 64 lanes against host oracles (numpy's MT19937,
    the port's bignum secp256k1 and encodings, hashlib): K1 raw and with
-   normalize, K2's digests and its fragments; the normalize
+   normalize, K2's digests and its fragments, K3 with the seconds its
+   window table takes to build on the host; the normalize
    kernel on every ``scalar_edge`` word and 2^19 random ones, lane-exact
    and the edge words against Python's k mod n (0 -> 1); the three keygen
    kernels in every mode and variant on the edge seeds (decimal strings of
@@ -80,9 +81,10 @@ transform's slots, then per slot normalize -> K3 -> K4 -> K2), and fails
    ``torch.profiler``; the normalize kernel with its input and output out
    of L2) against its plain version's and its bound at the path's shapes:
    the larger of its bytes over the HBM rate and the operations its
-   function needs (``kernels/work.py``) over the issue pipes' rate; the
-   keygen kernels in the modes the scans run (sha256, the four LCGs,
-   every sha256_chain variant); then the scan rate through the pipelined
+   function needs (``kernels/work.py``) over the issue pipes' rate; K3 on
+   the derive's 2^19 lanes against its plain version (lane-exact mod p)
+   and 64 of them against ``point_mul``; the keygen kernels in the modes
+   the scans run (sha256, the four LCGs, every sha256_chain variant); then the scan rate through the pipelined
    driver (``benchmark.bench_scan``) of milksad, direct:be and sha256
    against 4096 and 2^20 fragments;
 7. the string and generate paths, with D1 (``csrc/digest.cu``, the string
@@ -300,7 +302,7 @@ INT_OPS_PER_SM_CLOCK = 64            # 32-bit integer operations per SM per cloc
 BYTES_PER_LANE = {
     "mt19937": 36,       # 4 B seed in, 32 B key out
     "normalize": 64,     # 32 B in, 32 B out
-    "smul": 160,         # 32 B scalar in, 4 x 32 B out (+ the 0.85 MB table once)
+    "smul": 160,         # 32 B scalar in, 4 x 32 B out (+ the 9.96 MB table once)
     "smul_w8": 160,      # 32 B scalar in, 4 x 32 B out (+ the 512 KiB table once)
     "seq_madd": 192,     # 2 x 32 B offset in, 4 x 32 B out
     "inv_affine": 192,   # 4 x 32 B in, 2 x 32 B out
@@ -321,8 +323,9 @@ LOOP_TRIPS = {
     "mt19937_kernel": [[97]],
     "normalize_kernel": [[]],
     "hash160_kernel": [[]],
-    # 25 digits recoded; windows 1..25 added
-    "smul_kernel": [[25, 25]],
+    # WINDOWS - 1 digits recoded (the top one after the loop); windows
+    # 1..WINDOWS - 1 added
+    "smul_kernel": [[smul.WINDOWS - 1, smul.WINDOWS - 1]],
     # 32 byte windows, the first only seeds: 31 additions (the digit shifts
     # of window 0 go uncounted, so the bound stays below)
     "smul_w8_kernel": [[31]],
@@ -626,6 +629,26 @@ def phase_field(dev, rng):
         f"below 2^256; fe_canon == a mod p exactly")
 
 
+def k3_against_plain(norm: torch.Tensor, oracle: list) -> tuple[int, tuple]:
+    """K3 on the normalized (8, N) scalars against its plain version, mod p
+    (lane-exact after canonical reduction), and the ``oracle`` lanes as
+    affine points against ``point_mul``; (max abs err, the kernel's
+    outputs)."""
+    outs = smul.scalar_mul(norm)
+    plain = smul.scalar_mul_plain(norm, smul.table_on(str(norm.device)))
+    err = exact_err("K3 (mod p)", [F.canonical(F.from_u32_le(a)) for a in outs],
+                    [F.canonical(F.from_u32_le(a)) for a in plain])
+    X, Y, ZZ, ZZZ = (a.cpu() for a in outs)
+    norm_cpu = norm.cpu()
+    for j in oracle:
+        k = lane_int_be(norm_cpu, j)
+        gx = lane_int_le(X, j) * pow(lane_int_le(ZZ, j), -1, P) % P
+        gy = lane_int_le(Y, j) * pow(lane_int_le(ZZZ, j), -1, P) % P
+        if (gx, gy) != point_mul(k):
+            raise AssertionError(f"K3 lane {j} (k={k:#x}) differs from point_mul")
+    return err, outs
+
+
 def phase_kernels(dev, rng) -> dict:
     errs = {}
     # K1: adversarial seeds then random ones
@@ -652,31 +675,22 @@ def phase_kernels(dev, rng) -> dict:
     # K3: adversarial scalars (before normalization), then random ones
     n, p = N, P
     adv = [1, 2, 3, 4, 6, n - 1, n - 2, n - 3, (1 << 255) + 12345, 0xDEADBEEF,
-           1 << 128, 1 << 250, 0x3FF, 0x400, 0x401, GX, p, p - 1,
+           1 << 128, 1 << 250, 0x3FF, 0x400, 0x401, 0x3FFF, 0x4000, 0x4001, GX, p, p - 1,
            n, n + 1, n + 2, (1 << 256) - 1, (1 << 256) - 2, 0, (1 << 256) - (1 << 230)]
     rand = [int.from_bytes(rng.bytes(32), "big") for _ in range(N_KERNEL - len(adv))]
     raw = words_be(adv + rand).to(dev)
     norm = tiled.normalize_words(raw)
-    outs = smul.scalar_mul(norm)
-    table = smul.table_on(str(dev))
-    plain = smul.scalar_mul_plain(norm, table)
-    canon = [F.canonical(F.from_u32_le(a)) for a in outs]
-    canon_p = [F.canonical(F.from_u32_le(a)) for a in plain]
-    errs["smul"] = exact_err("K3 (mod p)", canon, canon_p)
+    t0 = time.perf_counter()
+    smul.build_table()
+    build_s = time.perf_counter() - t0
     oracle = list(range(len(adv))) + rng.choice(
         np.arange(len(adv), N_KERNEL), 64 - len(adv), replace=False).tolist()
-    X, Y, ZZ, ZZZ = (a.cpu() for a in outs)
-    norm_cpu = norm.cpu()
-    for j in oracle:
-        k = lane_int_be(norm_cpu, j)
-        ex, ey = point_mul(k)
-        gx = lane_int_le(X, j) * pow(lane_int_le(ZZ, j), -1, p) % p
-        gy = lane_int_le(Y, j) * pow(lane_int_le(ZZZ, j), -1, p) % p
-        if (gx, gy) != (ex, ey):
-            raise AssertionError(f"K3 lane {j} (k={k:#x}) differs from point_mul")
+    errs["smul"], outs = k3_against_plain(norm, oracle)
     say(f"[3 K3 smul] N={N_KERNEL} kernel == plain mod p, lane-exact after canonical "
         f"reduction (max abs err 0); 64 lanes == point_mul (1, 2, 3, n-1, n-2, even, "
-        f"(1<<255)+12345, 0xDEADBEEF, words >= n included)")
+        f"(1<<255)+12345, 0xDEADBEEF, words >= n included); {smul.WBITS}-bit windows, "
+        f"table {smul.WINDOWS} x {smul.TSIZE} rows ({TABLE_BYTES['smul'] / 1e6:.2f} MB) "
+        f"built on the host in {build_s:.3f} s")
 
     # K4: the K3 outputs, chains of 16 lanes spread over 1024 threads; the
     # last 8 lanes hold (X, Y, ZZ, ZZZ) representatives in [p, 2^256), which
@@ -694,7 +708,7 @@ def phase_kernels(dev, rng) -> dict:
     x, y = inv.affine(*k4_in)
     xp, yp = inv.affine_plain(*k4_in)
     errs["inv_affine"] = exact_err("K4", [x, y], [xp, yp])
-    x_cpu, y_cpu = x.cpu(), y.cpu()
+    x_cpu, y_cpu, norm_cpu = x.cpu(), y.cpu(), norm.cpu()
     for j in oracle:
         if j >= N_KERNEL - len(weak):
             continue
@@ -1381,6 +1395,11 @@ def phase_rate(dev, rng, card: str, int_ops_per_s: float, pipes: dict) -> dict:
                     f"{device_ms(fn, [KERNELS[name]], iters=20):.4f} ms device")
         if name == "smul_w8":
             note = f"; {adds:.4f} additions a lane on these scalars"
+        if name == "smul":
+            k3_against_plain(mt19937.milksad_key_words(seeds, normalize=True),
+                             rng.choice(BATCH, 64, replace=False).tolist())
+            note = ("; kernel == plain mod p lane-exact on these lanes, 64 of them == "
+                    "point_mul")
         lanes = LANES_PER_THREAD.get(name, 1)
         p = pipes[name]
         say(f"[6 time] {name} at N={BATCH}: kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms "

@@ -28,7 +28,7 @@ N = 1 << 19
 BOUNDS = [
     ("mt19937", 412, 910, 24, 0.0285, "operations", "ALU"),
     ("normalize", 0, 14, 8, 0.0100, "bytes", "bytes"),
-    ("smul", 34_200, 1_039, 14_493, 1.0720, "operations", "FMA"),
+    ("smul", 24_624, 752, 10_440, 0.7718, "operations", "FMA"),
     ("smul_w8", 42_408, 932, 17_670, 1.3292, "operations", "FMA"),
     ("seq_madd", 926, 20, 434, 0.0300, "bytes", "bytes"),
     ("inv_affine", 2_761.25, 16, 1_111.875, 0.0865, "operations", "FMA"),

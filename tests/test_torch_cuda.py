@@ -85,12 +85,16 @@ def test_normalize_kernel_matches_plain(dev):
         assert chip_smoke.lane_int_be(got, j) == (k % ref.N or 1)
 
 
-def test_smul_kernel_matches_plain_mod_p(dev):
-    norm = _scalars(dev)
-    got = smul.scalar_mul(norm)
-    want = smul.scalar_mul_plain(norm, smul.table_on(str(dev)))
-    for g, w in zip(got, want):
-        assert _eq(F.canonical(F.from_u32_le(g)), F.canonical(F.from_u32_le(w)))
+@pytest.mark.parametrize("lanes", ["edges", "milksad"])
+def test_smul_kernel_matches_plain_mod_p(dev, lanes):
+    """K3 on the edge scalars and on the main path's lanes (K1's normalized
+    keys): lane-exact mod p against its plain version, and 64 lanes against
+    ``ref.point_mul``."""
+    norm = (_scalars(dev) if lanes == "edges"
+            else mt19937.milksad_key_words(_seeds(dev), normalize=True))
+    before = smul.KERNEL.launches
+    err, _ = chip_smoke.k3_against_plain(norm, list(range(10)) + list(range(N - 54, N)))
+    assert err == 0 and smul.KERNEL.launches == before + 1
 
 
 def test_smul_w8_kernel_matches_plain_mod_p(dev):

@@ -47,7 +47,7 @@ def scalar_digits(words: torch.Tensor, wbits: int = 8, signed=False) -> torch.Te
     if (wbits, signed) == (8, False):
         digs = smul_w8.byte_digits(flat)
     elif (wbits, signed) == (10, "odd"):
-        digs = smul.odd_encode(flat)
+        digs = smul.odd_encode(flat, 10)
     else:
         raise ValueError(f"digit mode wbits={wbits}, signed={signed!r} is not ported")
     return digs.T.reshape(*words.shape[:-1], digs.shape[0])

@@ -30,7 +30,7 @@ from .scalar import normalize_words, normalize_words_plain
 
 
 def use_smul13(smul13: bool | None = None) -> bool:
-    """Whether the scalar multiplication is K3 (odd 10-bit digits) rather
+    """Whether the scalar multiplication is K3 (odd 14-bit digits) rather
     than K6 (byte windows): ``smul13`` when given, else True unless
     ``VUKE_TPU_SMUL13`` is 0, false or no, the JAX package's switch
     (``vuke_tpu/ecc/tiled.py:22-27``)."""

@@ -34,6 +34,7 @@ from dataclasses import dataclass
 
 from ..cores.hash160 import (RMD_IV, RMD_KL, RMD_KR, RMD_RL, RMD_RR, RMD_SL, RMD_SR, SHA_IV,
                              SHA_K)
+from ..ecc.smul import WINDOWS
 
 M32 = 0xFFFFFFFF
 
@@ -94,11 +95,13 @@ NORMALIZE = Ops(alu=14, add=8)
 
 
 def smul() -> Ops:
-    """K3: even k gains n (9 adds); each of the 26 odd signed digits taken
-    from its window (a funnel shift, a LOP3, the sign's compare, |d| as an
-    add and an ABS, the index's shift) and its table point's y negated where
-    the digit is negative (8 subtracts, 8 selects); 25 mixed additions."""
-    return Ops(alu=1, add=9) + 26 * Ops(alu=5 + 8, add=1 + 8) + 25 * MADD
+    """K3 over odd signed digits of ``ecc.smul.WBITS`` bits: even k gains n
+    (9 adds); each of the ``WINDOWS`` digits (19 at 14 bits) taken from its
+    window (a funnel shift, a LOP3, the sign's compare, |d| as an add and an
+    ABS, the index's shift) and its table point's y negated where the digit
+    is negative (8 subtracts, 8 selects); ``WINDOWS - 1`` mixed additions."""
+    return (Ops(alu=1, add=9) + WINDOWS * Ops(alu=5 + 8, add=1 + 8)
+            + (WINDOWS - 1) * MADD)
 
 
 def smul_w8(additions: float) -> Ops:

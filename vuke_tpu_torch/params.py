@@ -1,7 +1,8 @@
 """Carry the JAX package's state into the port's layouts.
 
-- ``table_from_jax``: ``pallas_smul13._table13_f32(10, "odd")`` (26, 512,
-  40) float32 13-bit limbs -> the port's (26, 512, 16) uint32 table.
+- ``table_from_jax``: ``pallas_smul13._table13_f32(wbits, "odd")``
+  (windows, rows, 40) float32 13-bit limbs -> the port's
+  ``smul.window_table(wbits)`` layout, (windows, rows, 16) uint32.
 - ``table_w8_from_jax``: ``pallas_smul._table_f32()`` (32, 256, 32)
   float32 16-bit limbs -> the port's (32, 256, 16) uint32 byte-window table.
 - ``pools_from_jax``: the numpy form of ``DeviceTargetSet.device_args()``
@@ -37,8 +38,9 @@ def _limbs13_to32(limbs: np.ndarray) -> np.ndarray:
 
 
 def table_from_jax(t13: np.ndarray) -> np.ndarray:
-    """(26, 512, 40) float32 (x limbs 0..19, y limbs 20..39, 13 bits each)
-    -> (26, 512, 16) uint32 (x then y, 8 LE 32-bit limbs each)."""
+    """(..., 40) float32 (x limbs 0..19, y limbs 20..39, 13 bits each), as
+    (26, 512, 40) at 10 bits -> (..., 16) uint32 (x then y, 8 LE 32-bit
+    limbs each)."""
     t13 = np.asarray(t13)
     if t13.shape[-1] != 2 * _L13:
         raise ValueError(f"expected (..., {2 * _L13}) limbs, got {t13.shape}")
